@@ -1,6 +1,6 @@
-"""aoclsparse_tpu — a TPU-native sparse linear-algebra framework.
+"""aoclsparse_tpu — a sparse linear-algebra library on JAX.
 
-Brand-new JAX/XLA/Pallas implementation of the capability surface of
+JAX/XLA implementation of the capability surface of
 AMD's AOCL-Sparse (see SURVEY.md at the repo root): sparse BLAS levels 1-3,
 format conversions, a trace-time planner (the hint/optimize analog),
 triangular solves and preconditioners via level-scheduled wavefronts, a
@@ -51,7 +51,6 @@ from .core.auxiliary import (  # noqa: F401
     debug_get,
     enable_instructions,
     set_precision_mode,
-    is_tpu_build,
 )
 from .core.context import get_context  # noqa: F401
 from .kernels.autotune import (  # noqa: F401

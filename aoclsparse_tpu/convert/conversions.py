@@ -204,7 +204,7 @@ def csr_to_ellhyb(A: CSR, width: Optional[int] = None) -> Tuple[ELL, CSR]:
     remainder (csr2ellthyb, convert.cpp:406). Default width mirrors the
     reference heuristic: min(max_width, mean + stddev?) — we use the nnz/row
     mean rounded up, clamped like aoclsparse_analysis.cpp (ell_width<=30 there;
-    TPU prefers multiples of 8)."""
+    widths rounded to multiples of 8)."""
     lens = _row_lengths(A)
     if width is None:
         mean = float(lens.mean()) if lens.size else 0.0
@@ -303,7 +303,7 @@ def bsr_to_csr(A: BSR) -> CSR:
 
 
 def csr_to_sell(A: CSR, slice_rows: int = 8, lane: int = 128) -> SELL:
-    """Build the TPU sliced-ELL execution format: per 8-row slice, width is the
+    """Build the sliced-ELL execution format: per 8-row slice, width is the
     slice's max row length rounded up to a lane multiple."""
     ptr = _np(A.ptr)
     ind = _np(A.ind)

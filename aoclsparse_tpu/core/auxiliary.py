@@ -1,7 +1,7 @@
 """Auxiliary/introspection API.
 
 Reference: src/extra/aoclsparse_auxiliary.cpp — get_version (:35),
-enable_instructions (:53), debug_get (:116), is_avx512_build, handle-level
+enable_instructions (:53), debug_get (:116), handle-level
 convert_csr/convert_bsr (conversion/aoclsparse_convert.cpp:1004-1471).
 """
 
@@ -18,7 +18,6 @@ __all__ = [
     "convert_bsr",
     "convert_format",
     "debug_get",
-    "is_tpu_build",
     "enable_instructions",
     "set_precision_mode",
 ]
@@ -78,42 +77,34 @@ def convert_format(h: SparseMatrix, fmt: FormatType, op: Operation = Operation.n
 
 def debug_get() -> dict:
     """Runtime introspection (aoclsparse_debug_get analog: ISA/arch/threads
-    there; platform/device/HBM/native-library here)."""
+    there; platform/device/published peaks/native-library here). `peaks`
+    is None for a device without published peaks (core/context.py PEAKS)."""
+    import dataclasses
+
     from .. import native
     from .. import __version__
+    from .context import PEAKS
 
     ctx = get_context()
+    peaks = PEAKS.get(ctx.device_kind)
     return {
         "version": __version__,
         "platform": ctx.platform,
         "device_kind": ctx.device_kind,
         "num_devices": ctx.num_devices,
-        "hbm_peak_gbps": ctx.hbm_gbps,
-        "vmem_bytes": ctx.vmem_bytes,
+        "peaks": None if peaks is None else dataclasses.asdict(peaks),
         "native_host_kernels": native.available(),
-        "pallas_enabled": ctx.pallas_ok,
         "force_kid": ctx.force_kid,
     }
 
 
-def is_tpu_build() -> bool:
-    """Is the TPU fast path active? (aoclsparse_is_avx512_build analog)."""
-    return get_context().is_tpu
-
-
 def enable_instructions(mode: Optional[str]) -> None:
     """Kernel-path override (AOCL_ENABLE_INSTRUCTIONS /
-    aoclsparse_enable_instructions analog): "generic" forces the portable
-    gather kernels (sets the env override and resets the cached context);
-    None/"" restores auto-selection."""
-    import os
-
-    if mode in (None, "", "auto"):
-        os.environ.pop("AOCLSPARSE_TPU_DISABLE_PALLAS", None)
-        os.environ.pop("AOCLSPARSE_TPU_FORCE_GENERIC", None)
-    elif mode == "generic":
-        os.environ["AOCLSPARSE_TPU_FORCE_GENERIC"] = "1"
-    else:
+    aoclsparse_enable_instructions analog). The portable gather kernels are
+    the default on every platform, so "generic" and None/""/"auto" select
+    the same kernels; the call validates the mode and re-detects the
+    device context. Per-call kernel pins go through a KID instead."""
+    if mode not in (None, "", "auto", "generic"):
         raise AoclSparseError(Status.invalid_value, f"unknown instruction mode '{mode}'")
     reset_context()
 

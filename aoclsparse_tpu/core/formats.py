@@ -1,15 +1,15 @@
 """Sparse storage formats as JAX pytrees.
 
-TPU-native redesign of the reference's format-object hierarchy
+Redesign of the reference's format-object hierarchy
 (library/src/include/aoclsparse_mat_structures.hpp:148-724: csr/bsr/blk_csr/
 tcsr/ell/ell_csr_hyb/coo). Instead of heap-owned C arrays inside a polymorphic
 handle, each format is an immutable dataclass pytree of JAX arrays with static
 shape metadata, so any op over it is jit/vmap/shard_map-compatible.
 
 x86-specific formats (BLKCSR mask-compression, CSR-BR4, TCSR) are replaced by
-the TPU tile-padded internal form :class:`SELL` (sliced-ELL: rows padded per
-row-block to the VPU sublane/lane grid), which plays the role BLKCSR/BR4 play
-for AVX (see SURVEY.md §7).
+the tile-padded internal form :class:`SELL` (sliced-ELL: rows padded per
+8-row block to a 128-wide grid), which plays the role BLKCSR/BR4 play for AVX
+(see SURVEY.md §7).
 
 All index arrays are **zero-based** internally; IndexBase conversion happens
 in create/export (core/matrix.py), exactly as the reference zero-bases in its
@@ -152,8 +152,8 @@ class ELL:
     """ELLPACK: every row padded to ``width``; padding entries carry col = -1
     and val = 0 (reference pads with -1 sentinel too, aoclsparse_convert.hpp).
 
-    TPU note: (m, width) layout vectorizes SpMV as gather+multiply+row-sum on
-    the VPU — this is the natural TPU analog of the reference's ELL AVX path.
+    The (m, width) layout vectorizes SpMV as gather+multiply+row-sum — the
+    analog of the reference's ELL AVX path.
     """
 
     ind: jax.Array  # (m, width) int, -1 padding
@@ -205,8 +205,8 @@ class DIA:
 @dataclasses.dataclass(frozen=True)
 class BSR:
     """Block sparse row with dense (bs x bs) blocks (docs/storage.rst BSR;
-    csr2bsr at conversion/aoclsparse_convert.cpp:592). Dense blocks are the
-    MXU-friendly form: bsrmv/bsrmm ride the systolic array."""
+    csr2bsr at conversion/aoclsparse_convert.cpp:592). bsrmv/bsrmm run the
+    dense blocks as a batched matmul."""
 
     ptr: jax.Array  # (mb+1,)
     ind: jax.Array  # (nnzb,) block-column indices
@@ -238,13 +238,13 @@ class BSR:
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
 class SELL:
-    """Sliced-ELL, the TPU-internal execution format the planner builds.
+    """Sliced-ELL, an internal execution format the planner builds.
 
-    Rows are grouped into slices of ``slice_rows`` (a multiple of the VPU
-    sublane count); each slice is padded to its own width rounded up to
-    ``lane`` (128) columns. This plays the role of the reference's
-    BLKCSR/CSR-BR4 AVX layouts (aoclsparse_analysis.cpp:35-385) with TPU tile
-    geometry instead of AVX registers.
+    Rows are grouped into slices of ``slice_rows`` (a multiple of 8); each
+    slice is padded to its own width rounded up to ``lane`` (128) columns.
+    This plays the role of the reference's BLKCSR/CSR-BR4 AVX layouts
+    (aoclsparse_analysis.cpp:35-385) with tile geometry instead of AVX
+    registers.
 
     ind/val are stored flattened as (total_padded,) with slice offsets in
     ``slice_ptr`` ((nslices+1,), multiples of slice_rows*width_s).

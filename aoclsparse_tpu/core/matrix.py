@@ -1,6 +1,6 @@
 """SparseMatrix handle: creation, export, copy, value updates, hints.
 
-TPU-native analog of `_aoclsparse_matrix` (aoclsparse_mat_structures.hpp:747-783)
+Analog of `_aoclsparse_matrix` (aoclsparse_mat_structures.hpp:747-783)
 and the creation/auxiliary API (library/src/create/aoclsparse_create.cpp:35,
 src/extra/aoclsparse_auxiliary.cpp:366-1014). Differences by design:
 
@@ -72,9 +72,9 @@ class SparseMatrix:
     """Mutable handle around an immutable format pytree.
 
     Values may be LAZY: a SpGEMM product computed on the band engine keeps
-    its CSR values as a pending extraction thunk (`_lazy`), because the
-    extraction gather costs ~13 ns/nnz on this TPU while chained mv/sp2m
-    consumption runs straight on the seeded device band. Any access to
+    its CSR values as a pending extraction thunk (`_lazy`), because chained
+    mv/sp2m consumption runs straight on the seeded device band and never
+    needs the extraction gather. Any access to
     ``.data`` materializes the values first, so every existing consumer
     stays correct; shape/nnz/dtype answer from the lazy structure without
     paying the gather."""

@@ -1,11 +1,11 @@
 """Core type system: enums, status codes, exceptions, dtype policy.
 
-TPU-native re-design of the reference's C type layer
+Re-design of the reference's C type layer
 (/root/reference/library/include/aoclsparse_types.h:54-402). The reference
 exposes C enums and a 15-value status enum returned from every call; here the
 same taxonomy becomes Python ``IntEnum``s plus a typed exception hierarchy, and
 the ILP64 ``aoclsparse_int`` switch becomes an index-dtype policy (int32 is the
-TPU-native index width; int64 supported for very large matrices).
+default index width; int64 supported for very large matrices).
 """
 
 from __future__ import annotations
@@ -115,9 +115,9 @@ class Order(enum.IntEnum):
 
 
 class FormatType(enum.IntEnum):
-    """Storage formats. TPU note: the x86-motivated formats of the reference
-    (BLKCSR/CSR-BR4/TCSR) are replaced by TPU tile-padded internal forms chosen
-    by the planner; user-facing formats below."""
+    """Storage formats. The x86-motivated formats of the reference
+    (BLKCSR/CSR-BR4/TCSR) are replaced by internal execution forms chosen by
+    the planner; user-facing formats below."""
 
     csr = 0
     csc = 1
@@ -165,7 +165,7 @@ class IluType(enum.IntEnum):
 # dtype policy
 # ---------------------------------------------------------------------------
 
-#: Default index dtype. int32 is TPU-native; the reference's BUILD_ILP64
+#: Default index dtype. int32 by default; the reference's BUILD_ILP64
 #: switch corresponds to passing int64 indices explicitly.
 index_dtype = jnp.int32
 

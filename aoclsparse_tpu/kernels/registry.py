@@ -1,9 +1,10 @@
 """Kernel registry + oracle dispatcher.
 
-TPU-native analog of the reference's Kernel-Attribute-Table + Oracle
+Analog of the reference's Kernel-Attribute-Table + Oracle
 (library/src/include/aoclsparse_cntx_dispatcher.hpp:46-78, 272-364). The
 reference scores table rows by CPU arch/ISA flags; here rows declare which
-backend ("tpu"/"cpu"/"any") and which execution-format they serve and the
+backend (a JAX platform, "gpu"/"cpu", or "any") and which execution-format
+they serve and the
 Oracle scores (backend exact match, format match, declared priority), caches
 the winner per lookup key, honors explicit KID overrides (returning
 ``Status.invalid_kid`` for unsupported requests, like Dispatch::Oracle), and a
@@ -31,7 +32,7 @@ class KernelEntry:
     name: str
     fn: Callable
     fmt: str  # execution format it consumes: "segsum"|"ell"|"ellhyb"|"bsr"|"dia"|...
-    backend: str = "any"  # "tpu" | "cpu" | "any"
+    backend: str = "any"  # a JAX platform ("gpu" | "cpu") or "any"
     priority: int = 0  # ties -> highest kid wins, like the reference
 
 
@@ -65,7 +66,7 @@ class Registry:
     ) -> KernelEntry:
         """Pick the kernel for (op, execution format), honoring KID override."""
         ctx = get_context()
-        backend = "tpu" if ctx.is_tpu else "cpu"
+        backend = ctx.platform
         if kid is None and ctx.force_kid is not None:
             kid = ctx.force_kid
         tbl = self._tables.get(op)

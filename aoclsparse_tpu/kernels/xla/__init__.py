@@ -1,9 +1,8 @@
 """XLA-path kernels: jittable pure functions over statically-shaped arrays.
 
 Registered into the global kernel registry (kernels/registry.py) as the
-baseline rows of each op's KAT table — the analog of the reference's
-``ref``/KT-AVX2 rows; Pallas TPU kernels register higher-priority rows
-(kernels/pallas) the way raw AVX-512 rows do.
+rows of each op's KAT table — the analog of the reference's ``ref``/KT-AVX2
+rows.
 """
 
 from . import spmv  # noqa: F401
@@ -20,29 +19,6 @@ registry.register("mv", KernelEntry(6, "xla_diag", spmv.spmv_diag, "diag", "any"
 registry.register("mv", KernelEntry(7, "xla_gen", spmv.spmv_gen, "gen", "any", 1))
 registry.register("mv", KernelEntry(9, "xla_bwdg", spmv.spmv_bwdg, "bwdg", "any", 1))
 registry.register("mv", KernelEntry(10, "xla_sell", spmv.spmv_sell, "sell", "any", 0))
-
-from ..pallas.spmv import spmv_bandt, spmv_bandv, spmv_bandv_df  # noqa: E402
-
-registry.register("mv", KernelEntry(8, "pallas_bandt", spmv_bandt, "bandt", "any", 2))
-# vertical-layout twin (full 8-sublane VPU tiles, pre-transformed band):
-# beats the v2 kernel in every same-window A/B (HUNT_r3.jsonl round-12
-# baselines: 921-933 us vs 1431-1492 us single-dispatch at TM=2048), so it
-# outranks KID 8 as the bandt-form default
-registry.register("mv", KernelEntry(12, "pallas_bandv", spmv_bandv, "bandt", "any", 3))
-# double-float (two-f32) band kernel for float64 operands: f64-class
-# accuracy (~2^-48 relative, docs/precision.md) at roughly 2x the f32
-# kernel's cost instead of XLA's ~16x emulated-f64 penalty. Negative
-# priority: explicit KID / autotune pin only (the default f64 path stays
-# the exact XLA bwd form — CLAUDE.md non-default carve-out)
-registry.register("mv", KernelEntry(13, "pallas_bandv_df", spmv_bandv_df, "bandt", "any", -1))
-
-from ...planner.spill_route import spill_route_apply  # noqa: E402
-
-# whole-matrix spill-route engine (mv KID 14): one-hot MXU select -> Benes
-# route -> one-hot accumulate over EVERY entry — gather-free, so unlike the
-# ell/segsum rows it may be a planner DEFAULT (large irregular matrices the
-# gen composite rejects; planner/plan.py _build_route)
-registry.register("mv", KernelEntry(14, "spill_route", spill_route_apply, "route", "any", 1))
 
 # Host engine for latency-bound tiny operands (kernels/host.py): negative
 # priority keeps it out of Oracle auto-selection — it runs only via an

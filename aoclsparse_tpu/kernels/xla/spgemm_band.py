@@ -1,11 +1,8 @@
-"""Band x band SpGEMM numeric stage: a lax.scan of dense MXU matmuls.
+"""Band x band SpGEMM numeric stage: a lax.scan of dense matmuls.
 
 The product-expansion numeric (ops/level3/spgemm.py _numeric) is three
-irregular index ops of size P; measured on this TPU every such op costs
-~13 ns/element regardless of sortedness or contiguity
-(benchmarks/PROBE_spgemm.jsonl), i.e. ~445 ms for the 16.7M-product band
-case. When BOTH operands are band-compressible the product needs no
-per-product indexing: with G-row-group banded storage (the bwdg layout)
+irregular index ops of size P. When BOTH operands are band-compressible the
+product needs no per-product indexing: with G-row-group banded storage (the bwdg layout)
 the B-row slab each A group multiplies decomposes into 2-4 consecutive
 B blocks whose placement offsets are IDENTICAL for every group (grid
 alignment), so the numeric stage becomes
@@ -13,7 +10,7 @@ alignment), so the numeric stage becomes
     scan over row groups g:
         for stream s:  C_g[:, G*s : G*s+WB] += A_g[:, rows_s] @ B_{g+d0+s}[rows_s', :]
 
-— static-sliced MXU matmuls only, emitting C as a (nblk, G, WC) dense
+— static-sliced dense matmuls only, emitting C as a (nblk, G, WC) dense
 band; CSR values are one final gather through a plan-time extraction map.
 The rolled B-block streams are materialized at refresh time, not per call.
 Reference counterpart: the numeric stage of the Gustavson engine
@@ -78,7 +75,7 @@ def build_band_gemm_plan(
 ) -> Optional[BandGemmPlan]:
     """Set up the band path for C = effA @ effB given C's pattern from the
     symbolic stage; None when the operands don't band-compress or the
-    measured-rate cost model prefers product expansion.
+    cost model prefers product expansion.
 
     formA_pre/formB_pre: an operand that is itself a band-engine product
     carries a seeded ``bwdg`` form (cband_exec_form) whose device band IS
@@ -123,8 +120,8 @@ def build_band_gemm_plan(
         return None  # stream alignment assumes equal group counts
     if nblk * G * WC * 4 > 8e9:  # C band memory guard
         return None
-    # measured-rate cost model (PROBE_spgemm.jsonl): per-product index ops
-    # ~13 ns/elem, dense streams ~250 GB/s, matmul ~20 TFLOP/s
+    # cost model weights (not calibrated on the GPU; PERF.md open
+    # questions): per-product index op, dense stream rate, matmul rate
     P = float(np.diff(effB.ptr.astype(np.int64))[effA.ind.astype(np.int64)].sum())
     nnzC = float(Cind.shape[0])
     est_exp = 3.0 * P * 13e-9
@@ -201,8 +198,7 @@ def _band_gemm_scan(Aband, streams, G: int, WB: int, WC: int, ranges, mixed: boo
                     preferred_element_type=jnp.float32,
                 ).astype(dt)
             else:
-                # f32-parity on TPU needs the 3-pass MXU schedule (the
-                # default single bf16 pass is ~1e-3 relative)
+                # HIGHEST: the default may lower to TF32 (~1e-3 relative)
                 part = jnp.dot(
                     Asub, Bsub, preferred_element_type=dt,
                     precision=jax.lax.Precision.HIGHEST,
@@ -242,51 +238,6 @@ def band_gemm_cband(plan: BandGemmPlan, valA_eff, valB_eff, mixed: bool = False)
     if getattr(plan, "_valB_src", None) is not valB_eff:
         plan.formB.refresh(valB_eff)
         plan._valB_src = valB_eff
-    # Pallas grid-parallel kernel (TPU default): the scan formulation
-    # sequentializes the independent row groups and measured ~3 orders of
-    # magnitude off the traffic roofline (VERDICT r3 item 3). Env kill
-    # switch + automatic fallback to the scan on Mosaic failure.
-    import os
-
-    from ...core.context import get_context
-
-    ctx = get_context()
-    use_pallas = (
-        (ctx.is_tpu or ctx.pallas_ok)
-        and os.environ.get("AOCLSPARSE_TPU_SPGEMM_PALLAS", "1") not in ("0", "false")
-        and jnp.dtype(plan.formA.bwd_val.dtype)
-        in (jnp.dtype(jnp.float32), jnp.dtype(jnp.bfloat16))
-    )
-    if use_pallas:
-        try:
-            from ..pallas.spgemm import pallas_band_gemm
-
-            return pallas_band_gemm(
-                plan.formA.bwd_val,
-                plan.formB.bwd_val,
-                G=plan.G,
-                WB=plan.WB,
-                WC=plan.WC,
-                d0=plan.d0,
-                ranges=plan.stream_ranges,
-                mixed=mixed,
-                interpret=not ctx.is_tpu,
-            )
-        except (ImportError, jax.errors.JaxRuntimeError, ValueError, NotImplementedError) as e:
-            # Mosaic/VMEM rejection (e.g. the measured G=512 C-tile
-            # failure): fall through to the ~1000x-slower scan engine —
-            # but say so once per plan, so a real bug or perf cliff is
-            # visible instead of silently absorbed (ADVICE r4)
-            if not getattr(plan, "_pallas_warned", False):
-                plan._pallas_warned = True
-                import warnings
-
-                warnings.warn(
-                    f"pallas_band_gemm rejected ({type(e).__name__}: {e}); "
-                    "falling back to the scan engine for this plan",
-                    RuntimeWarning,
-                    stacklevel=2,
-                )
     streams = _ensure_streams(plan)
     return _band_gemm_scan(
         plan.formA.bwd_val,

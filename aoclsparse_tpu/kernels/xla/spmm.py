@@ -1,10 +1,10 @@
 """SpMM kernels: C = op(A) @ B, sparse x dense (csrmm analog).
 
 Reference: level3/aoclsparse_csrmm.{cpp,hpp} + csrmm_kt.cpp — OpenMP rows x
-4-wide column tiles of B. TPU formulation: the dense RHS makes this op far
-more MXU/VPU-friendly than SpMV — each gathered B row is a full lane vector,
-so the (m, w, k) padded form keeps the VPU busy and XLA fuses the masked
-multiply into the row reduction.
+4-wide column tiles of B. Here each gathered B row is a contiguous vector, so
+the (m, w, k) padded form streams whole rows and XLA fuses the masked
+multiply into the row reduction. Contractions run at ``precision=HIGHEST``
+unless mixed precision was requested (see kernels/xla/spmv.py).
 """
 
 from __future__ import annotations
@@ -14,7 +14,9 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
-__all__ = ["spmm_segsum", "spmm_ell", "spmm_ellhyb", "spmm_gen", "spmm_diag"]
+HIGHEST = jax.lax.Precision.HIGHEST
+
+__all__ = ["spmm_segsum", "spmm_ell", "spmm_ellhyb", "spmm_bwd", "spmm_diag"]
 
 
 @partial(jax.jit, static_argnames=("m",))
@@ -90,110 +92,17 @@ def spmm_ellhyb(ell_ind, ell_val, sp_ind, sp_val, sp_rows, B, m: int):
     return C
 
 
-@partial(
-    jax.jit,
-    static_argnames=(
-        "Bblk",
-        "W",
-        "padL",
-        "start",
-        "TM",
-        "m",
-        "m_pad",
-        "interpret",
-        "has_hub",
-        "has_hubrow",
-        "has_spill",
-        "has_flip",
-    ),
-)
-def spmm_gen(
-    v_rows,
-    Bmat,
-    bperm,
-    bout,
-    flip,
-    hub_slab,
-    hub_cols,
-    hubr_slab,
-    hubr_rows,
-    sp_val,
-    sp_ind,
-    sp_rows,
-    Bblk: int,
-    W: int,
-    padL: int,
-    start: int,
-    TM: int,
-    m: int,
-    m_pad: int,
-    interpret: bool = False,
-    has_hub: bool = False,
-    has_hubrow: bool = False,
-    has_spill: bool = False,
-    has_flip: bool = False,
-):
-    """General-sparsity SpMM (mm KID 6): the gen composite
-    (plan._build_gen — block-RCM-permuted band + dense hub slabs + COO
-    spill, see kernels/xla/spmv.py spmv_gen) applied to a dense RHS in ONE
-    compiled program. The permuted band rides the Pallas row-aligned band
-    SpMM kernel (kernels/pallas/spmv.py pallas_spmm_band_t — v_rows is the
-    (m_pad, W) transpose of the gen form's bandt slab,
-    ExecForm.bandt_rows()); hub columns/rows are plain MXU matmuls against
-    the original/permuted RHS; the spill is a row-sorted segment-sum of
-    gathered RHS rows (O(nnz/100) by planner construction). RHS rows are
-    block-permuted as (nblk, Bblk, k) panel gathers like the SpMV x —
-    never elementwise gathers. Covers the reference csrmm's
-    general-structure reach (level3/aoclsparse_csrmm.hpp) with the same
-    gather-free band core as the gen SpMV; previously general structure
-    fell back to the padded-ELL gather kernel."""
-    k = Bmat.shape[1]
-    nblk = m_pad // Bblk
-    Xb = jnp.pad(Bmat, ((0, m_pad - Bmat.shape[0]), (0, 0))).reshape(nblk, Bblk, k)
-    Xpb = Xb[bperm]  # (nblk, Bblk, k) block-permuted RHS rows
-    if has_flip:
-        Xpb = jnp.where(flip[:, None, None], Xpb[:, ::-1, :], Xpb)
-    Xp = Xpb.reshape(m_pad, k)
-    from ..pallas.spmv import pallas_spmm_band_t
-
-    # lane-pad K ONLY around the band kernel leg (its blocks need K%128):
-    # padding the whole RHS doubled three (m_pad, K) arrays at K=64 and
-    # OOM'd the 4.7M-row rajat31 stand-in; hub/spill legs run at true K
-    k_pad = -(-k // 128) * 128
-    Xe = jnp.pad(Xp, ((padL, 0), (0, k_pad - k)))
-    Cp = pallas_spmm_band_t(v_rows, Xe, W, start, TM=TM, interpret=interpret)[:m_pad]
-    if k_pad != k:
-        Cp = Cp[:, :k]
-    Cp = Cp.astype(Xp.dtype)
-    if has_spill:
-        Cp = Cp + jax.ops.segment_sum(
-            sp_val[:, None] * Xp[sp_ind],
-            sp_rows,
-            num_segments=m_pad,
-            indices_are_sorted=True,
-        )
-    if has_hub:
-        Cp = Cp + hub_slab @ Bmat[hub_cols]
-    if has_hubrow:
-        Cp = Cp.at[hubr_rows].add(hubr_slab @ Xp)
-    Cpb = Cp.reshape(nblk, Bblk, k)
-    if has_flip:
-        Cpb = jnp.where(flip[:, None, None], Cpb[:, ::-1, :], Cpb)
-    return Cpb[bout].reshape(m_pad, k)[:m]
-
-
 @partial(jax.jit, static_argnames=("G", "Wg", "base", "n_pad", "mixed"))
 def spmm_bwd(grp_val, B, G: int, Wg: int, base: int, n_pad: int, mixed: bool = False):
-    """Group-banded SpMM — TPU block-band path (see spmv_bwd for rationale).
+    """Group-banded SpMM (mm KID 3; see spmv_bwd).
 
     Rows are grouped into blocks of G; each group's band window (G + halo) is
     materialized densely: grp_val (ngrp, G, Wg), window of group g covering
     rows [G*(g + base) .. +Wg) of the padded B. Compute is a lax.scan over
-    groups, each step ONE plain 2-D (G x Wg) @ (Wg x k) MXU matmul against a
-    dynamic slice of B — zero gathers, and deliberately NO batched
-    dot_general (measured catastrophically slow on this TPU stack: 0.1-0.15
-    TFLOP/s for batched vs ~36 TFLOP/s for 2-D). csrmm analog of the
-    reference's blocked SpMM (level3/aoclsparse_csrmm.hpp)."""
+    groups, each step ONE plain 2-D (G x Wg) @ (Wg x k) matmul against a
+    window of B — zero gathers; XLA hands each matmul to the GPU's BLAS.
+    csrmm analog of the reference's blocked SpMM
+    (level3/aoclsparse_csrmm.hpp)."""
     ngrp = grp_val.shape[0]
     k = B.shape[1]
     out_dtype = grp_val.dtype
@@ -202,8 +111,7 @@ def spmm_bwd(grp_val, B, G: int, Wg: int, base: int, n_pad: int, mixed: bool = F
         grp_val = grp_val.astype(jnp.bfloat16)
         B = B.astype(jnp.bfloat16)
 
-    # Build all B windows with STATIC slices (traced dynamic_slice costs
-    # ~0.4 ms per call on this stack), then scan plain 2-D matmuls.
+    # Build all B windows with STATIC slices, then scan plain 2-D matmuls.
     nslice = -(-Wg // G)
     Br2 = B.reshape(-1, G * k)  # (n_pad/G, G*k) — pure view
     wins2 = jnp.concatenate(
@@ -214,7 +122,9 @@ def spmm_bwd(grp_val, B, G: int, Wg: int, base: int, n_pad: int, mixed: bool = F
 
     def step(_, args):
         a_g, w_g = args
-        return None, jnp.dot(a_g, w_g, preferred_element_type=acc)
+        return None, jnp.dot(
+            a_g, w_g, preferred_element_type=acc, precision=None if mixed else HIGHEST
+        )
 
     _, outs = jax.lax.scan(step, None, (grp_val, wins))
     return outs.reshape(ngrp * G, k).astype(out_dtype)
@@ -224,10 +134,8 @@ def spmm_bwd(grp_val, B, G: int, Wg: int, base: int, n_pad: int, mixed: bool = F
 def _spmm_diag_unrolled(dvals, B, offs: tuple, m: int, L: int, n_pad: int):
     """Diag-form SpMM as ndiag static shifted elementwise FMAs over the
     padded RHS — the matrix-RHS twin of spmv._spmv_diag_unrolled. One
-    fused XLA kernel, gather-free; each diagonal re-reads a shifted
-    (m, k) window of B from HBM, so traffic is ~ndiag * m * k * 4 B —
-    the Pallas C^T kernel (pallas_spmm_diag) cuts that ~17x when the
-    diagonal span fits its VMEM window."""
+    fused XLA kernel, gather-free; each diagonal re-reads a shifted (m, k)
+    window of B, so traffic is ~ndiag * m * k values."""
     Bp = jnp.pad(B, ((L, n_pad - L - B.shape[0]), (0, 0)))
     acc = jnp.zeros((m, B.shape[1]), dvals.dtype)
     for k, d in enumerate(offs):
@@ -260,89 +168,14 @@ def _spmm_diag_scan(dvals, offs, B, m: int, L: int, n_pad: int):
     return acc
 
 
-def spmm_diag(
-    dvals, offs, B, m: int, L: int, n_pad: int, offs_static=None,
-    interpret: bool = False,
-):
+def spmm_diag(dvals, offs, B, m: int, L: int, n_pad: int, offs_static=None):
     """Dispatcher for the diag execution form's SpMM (mm KID 7): the
-    Pallas C^T lane-shift kernel when the diagonal span fits its VMEM
-    window (pwtk class: ~192 diagonals over a +-2729 halfband), the
-    unrolled static-slice XLA kernel otherwise (ldoor/bone010 class:
-    ~44-73k spans), the scan form past the unroll cap. Reference role:
-    csrmm over the DIA internal format (level3/aoclsparse_csrmm.hpp)."""
+    unrolled static-slice kernel up to the unroll cap, the scan form past
+    it. Reference role: csrmm over the DIA internal format
+    (level3/aoclsparse_csrmm.hpp)."""
     from .spmv import DIA_UNROLL
 
     if offs_static is not None and len(offs_static) <= DIA_UNROLL:
         offs_t = tuple(int(o) for o in offs_static)
-        ndiag = len(offs_t)
-        span = max(offs_t) - min(offs_t)
-        if jnp.dtype(dvals.dtype) in (jnp.dtype(jnp.float32), jnp.dtype(jnp.bfloat16)):
-            from ..pallas.spmv import diagmm_tiles, pallas_spmm_diag
-
-            K8 = -(-B.shape[1] // 8) * 8
-            D8 = -(-ndiag // 8) * 8
-            tile = diagmm_tiles(span, K8, D8)
-            if tile is not None:
-                try:
-                    return pallas_spmm_diag(
-                        dvals, B, offs_t, m, L, n_pad, TMl=tile[0],
-                        interpret=interpret,
-                    )
-                except (jax.errors.JaxRuntimeError, ValueError, NotImplementedError):
-                    pass  # Mosaic refusal -> fused XLA slices below
-            else:
-                # cluster decomposition (ldoor/bone010 class): FEM element
-                # diagonals come in tight clusters around the mesh's plane
-                # offsets (e.g. 3-dof z-planes at +-22k with in-cluster
-                # spans of a few hundred) — the GLOBAL span swamps the VMEM
-                # window, but each cluster fits, so run the Pallas kernel
-                # per cluster and sum. Traffic ~ ncluster * 3 * B bytes vs
-                # ndiag * B for the unrolled slices (~13x less at ldoor's
-                # 140 diagonals / 3 clusters).
-                groups = _cluster_offsets(offs_t)
-                if groups is not None and all(
-                    diagmm_tiles(max(g) - min(g), K8, -(-len(g) // 8) * 8)
-                    for g in groups
-                ):
-                    try:
-                        out = None
-                        pos = {o: i for i, o in enumerate(offs_t)}
-                        for g in groups:
-                            rows = [pos[o] for o in g]
-                            tg = diagmm_tiles(
-                                max(g) - min(g), K8, -(-len(g) // 8) * 8
-                            )
-                            if rows == list(range(rows[0], rows[0] + len(rows))):
-                                dv_g = jax.lax.slice_in_dim(
-                                    dvals, rows[0], rows[0] + len(rows), axis=0
-                                )  # static slice: offsets sorted -> contiguous
-                            else:
-                                dv_g = dvals[jnp.asarray(rows, dtype=jnp.int32)]
-                            part = pallas_spmm_diag(
-                                dv_g, B, tuple(g), m, L, n_pad, TMl=tg[0],
-                                interpret=interpret,
-                            )
-                            out = part if out is None else out + part
-                        return out
-                    except (
-                        jax.errors.JaxRuntimeError, ValueError, NotImplementedError,
-                    ):
-                        pass
         return _spmm_diag_unrolled(dvals, B, offs_t, m, L, n_pad)
     return _spmm_diag_scan(dvals, offs, B, m, L, n_pad)
-
-
-def _cluster_offsets(offs_t, max_groups: int = 8, gap: int = 4096):
-    """Split sorted diagonal offsets at gaps > ``gap`` into clusters.
-    Returns the list of clusters, or None when clustering doesn't help
-    (single cluster or too many)."""
-    so = sorted(offs_t)
-    groups = [[so[0]]]
-    for o in so[1:]:
-        if o - groups[-1][-1] > gap:
-            groups.append([o])
-        else:
-            groups[-1].append(o)
-    if len(groups) <= 1 or len(groups) > max_groups:
-        return None
-    return groups

@@ -4,7 +4,7 @@ Executes the planner's TrsvForm (planner/triangular.py): a lax.scan over row
 blocks; each step does a padded-ELL gather matvec against the already-solved
 prefix of x and a dense (nb, nb) `triangular_solve` for the diagonal block.
 This replaces the reference's loop-carried scalar sweep
-(level2/aoclsparse_trsv_kt.cpp:65-...) with MXU/VPU-dense steps; scan length
+(level2/aoclsparse_trsv_kt.cpp:65-...) with dense block steps; scan length
 is m/nb instead of m.
 
 Works for single RHS (trsv) and multi-RHS (trsm: B is (m, k)) identically.
@@ -16,6 +16,9 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
+
+#: contractions must not lower to TF32 (kernels/xla/spmv.py)
+HIGHEST = jax.lax.Precision.HIGHEST
 
 __all__ = ["trsv_blocked"]
 
@@ -38,7 +41,7 @@ def trsv_blocked_win(D, Lwin, b, nb: int, m_pad: int, WL: int):
     def step(w, args):
         # w: (WL, k) = x rows [blk0-WL, blk0) of the current block
         Dk, lwink, bk = args
-        s = jnp.einsum("rw,wk->rk", lwink, w)
+        s = jnp.einsum("rw,wk->rk", lwink, w, precision=HIGHEST)
         xk = jax.lax.linalg.triangular_solve(
             Dk, bk - s, left_side=True, lower=True, unit_diagonal=False
         )
@@ -55,8 +58,8 @@ def trsv_blocked_win(D, Lwin, b, nb: int, m_pad: int, WL: int):
 @jax.jit
 def invert_diag_blocks(D):
     """Invert the (nblk, nb, nb) lower-triangular diagonal blocks once
-    (scan of 2-D solves — batched solves are pathological on this stack).
-    Lets the per-step solve become one MXU matmul (trsv_blocked_win_inv)."""
+    (scan of 2-D solves). Lets the per-step solve become one matmul
+    (trsv_blocked_win_inv; the distributed pipeline uses it)."""
     nb = D.shape[1]
     eye = jnp.eye(nb, dtype=D.dtype)
 
@@ -72,11 +75,11 @@ def invert_diag_blocks(D):
 @partial(jax.jit, static_argnames=("nb", "m_pad", "WL"))
 def trsv_blocked_win_inv(Dinv, Lwin, b, nb: int, m_pad: int, WL: int):
     """Rolling-window solve with pre-inverted diagonal blocks: each scan step
-    is two dense matmuls (left-window matvec + Dinv multiply) — the
-    per-step `triangular_solve` latency dominates trsv_blocked_win on this
-    stack. Numerics: inv-multiply instead of substitution; within the
-    tolerance model for the well-conditioned diagonal blocks the planner
-    builds, and gated off by AOCLSPARSE_TPU_TRSV_EXACT=1."""
+    is two dense matmuls (left-window matvec + Dinv multiply) instead of a
+    `triangular_solve`. Numerics: inv-multiply instead of substitution;
+    within the tolerance model for the well-conditioned diagonal blocks the
+    planner builds. No default path selects it; it is the candidate for the
+    TRSV cell on the GPU (ROADMAP)."""
     squeeze = b.ndim == 1
     if squeeze:
         b = b[:, None]
@@ -87,8 +90,8 @@ def trsv_blocked_win_inv(Dinv, Lwin, b, nb: int, m_pad: int, WL: int):
 
     def step(w, args):
         Dik, lwink, bk = args
-        s = jnp.einsum("rw,wk->rk", lwink, w)
-        xk = jnp.dot(Dik, bk - s, preferred_element_type=dtype)
+        s = jnp.einsum("rw,wk->rk", lwink, w, precision=HIGHEST)
+        xk = jnp.dot(Dik, bk - s, preferred_element_type=dtype, precision=HIGHEST)
         w = jnp.concatenate([w, xk], axis=0)[-WL:]
         return w, xk
 
@@ -133,7 +136,7 @@ def trsv_blocked_dwin(Dm, Dv, b, nb: int, m_pad: int, WL: int, offs: tuple, inv:
             s = s + dvk[j][:, None] * jax.lax.slice_in_dim(wp, WL - d, WL - d + nb)
         rhs = bk - s
         if inv:
-            xk = jnp.dot(Dk, rhs, preferred_element_type=dtype)
+            xk = jnp.dot(Dk, rhs, preferred_element_type=dtype, precision=HIGHEST)
         else:
             xk = jax.lax.linalg.triangular_solve(
                 Dk, rhs, left_side=True, lower=True, unit_diagonal=False
@@ -163,7 +166,7 @@ def trsv_blocked(D, Lind, Lval, b, nb: int, m_pad: int):
         Dk, indk, valk, bk, kidx = args
         # left contribution: (nb, W) gather of solved entries
         xg = x[indk]  # (nb, W, k)
-        s = jnp.einsum("rw,rwk->rk", valk, xg.astype(dtype))
+        s = jnp.einsum("rw,rwk->rk", valk, xg.astype(dtype), precision=HIGHEST)
         rhs = bk - s
         xk = jax.lax.linalg.triangular_solve(
             Dk, rhs, left_side=True, lower=True, unit_diagonal=False

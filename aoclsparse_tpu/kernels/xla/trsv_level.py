@@ -4,14 +4,14 @@ SURVEY.md §7's second sequential-algorithm design: "level-scheduling
 analysis in the planner (host-side, C++-backed where hot) → wavefront
 execution as a lax.scan over levels with batched per-level sparse ops".
 The planner's default TRSV is the blocked scan (planner/triangular.py —
-MXU block solves, best for banded structure where the dependency chain is
+dense block solves, best for banded structure where the dependency chain is
 long anyway); THIS form wins when the dependency DAG is SHALLOW
 (circuit/power-law triangles with few levels): all rows of a level solve
 simultaneously as one masked gather-reduce, so the scan has `nlev` steps
 instead of `m/nb`.
 
 Reference role: the sequential loop-carried sweep of
-level2/aoclsparse_trsv_kt.cpp:65-…, re-parallelized the TPU way. Exposed
+level2/aoclsparse_trsv_kt.cpp:65-…, re-parallelized by level. Exposed
 as TRSV KID 1 (the blocked scan stays KID 0 and the Oracle default).
 
 Level analysis runs in native C++ (native/host_kernels.cpp

@@ -2,16 +2,21 @@
 
 C++ is used exactly where the reference uses it for host-side sequential
 work (ILU0 factorization, ilu0.hpp:37-112; Gustavson symbolic scan,
-csr2m.cpp:89-200) plus the level-scheduling analysis the TPU planner adds.
+csr2m.cpp:89-200) plus the level-scheduling analysis the planner adds.
 The library is compiled on first use with g++ into this package directory
-and cached; every entry point has a numpy fallback so the package works
-without a toolchain (`AOCLSPARSE_TPU_NO_NATIVE=1` forces the fallback).
+and cached under a name keyed on a hash of the source, the build flags and
+the host CPU (``-march=native`` code runs only where it was built), so a
+stale build or one copied from another machine is never loaded. Every entry
+point has a numpy fallback so the package works without a toolchain
+(`AOCLSPARSE_TPU_NO_NATIVE=1` forces the fallback).
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 import threading
 from pathlib import Path
@@ -22,7 +27,6 @@ import numpy as np
 __all__ = [
     "trsv_win_build",
     "available",
-    "benes_plan",
     "blkcsr_build",
     "blkcsr_count",
     "ilu0_factor",
@@ -35,34 +39,49 @@ __all__ = [
 
 _HERE = Path(__file__).resolve().parent
 _SRC = _HERE / "src" / "host_kernels.cpp"
-_LIB = _HERE / "libaoclsparse_host.so"
+_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-pthread", "-std=c++17")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
 
 
-def _build() -> bool:
+def _host_cpu() -> str:
+    """Model and feature flags of this host's CPU (what -march=native
+    compiles for)."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            lines = f.read().splitlines()
+    except OSError:
+        return platform.processor()
+    keep = [ln for ln in lines if ln.startswith(("model name", "flags"))][:2]
+    return "\n".join(keep)
+
+
+def _lib_path() -> Path:
+    key = hashlib.sha256()
+    key.update(_SRC.read_bytes())
+    key.update(" ".join(_FLAGS).encode())
+    key.update(platform.machine().encode())
+    key.update(_host_cpu().encode())
+    return _HERE / f"libaoclsparse_host-{key.hexdigest()[:16]}.so"
+
+
+def _build(lib_path: Path) -> bool:
+    # compile to a private name and rename: concurrent first uses (test
+    # workers) never load a half-written library
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
     try:
         subprocess.run(
-            [
-                "g++",
-                "-O3",
-                "-march=native",
-                "-shared",
-                "-fPIC",
-                "-pthread",
-                "-std=c++17",
-                str(_SRC),
-                "-o",
-                str(_LIB),
-            ],
+            ["g++", *_FLAGS, str(_SRC), "-o", str(tmp)],
             check=True,
             capture_output=True,
-            timeout=120,
+            timeout=300,
         )
+        os.replace(tmp, lib_path)
         return True
-    except Exception:
+    except (OSError, subprocess.SubprocessError):
+        tmp.unlink(missing_ok=True)
         return False
 
 
@@ -76,11 +95,11 @@ def _load() -> Optional[ctypes.CDLL]:
         _tried = True
         if os.environ.get("AOCLSPARSE_TPU_NO_NATIVE", "0") in ("1", "true"):
             return None
-        if not _LIB.exists() or _LIB.stat().st_mtime < _SRC.stat().st_mtime:
-            if not _build():
-                return None
+        lib_path = _lib_path()
+        if not lib_path.exists() and not _build(lib_path):
+            return None
         try:
-            lib = ctypes.CDLL(str(_LIB))
+            lib = ctypes.CDLL(str(lib_path))
         except OSError:
             return None
         i64p = ctypes.POINTER(ctypes.c_int64)
@@ -154,8 +173,6 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.blkcsr_build.argtypes = (
             [ctypes.c_int64, ctypes.c_int64, i64p, i64p, ctypes.c_int64, i64p, i64p, u8p, i64p]
         )
-        lib.benes_plan.restype = None
-        lib.benes_plan.argtypes = [ctypes.c_int64, i64p, u8p]
         _lib = lib
         return _lib
 
@@ -281,7 +298,7 @@ def rcm_permutation(m: int, ptr, ind) -> Tuple[np.ndarray, int]:
     Returns (perm, half_bandwidth_after): perm[k] = original row placed at
     position k; applying it symmetrically (B = A[perm][:, perm]) gives the
     reported half bandwidth. The planner uses this to route general-sparsity
-    matrices to the banded-window TPU form (new analysis — the reference's
+    matrices to the banded-window form (new analysis — the reference's
     gather kernels are structure-agnostic on x86 and never reorder)."""
     lib = _load()
     ptr64 = _i64(ptr)
@@ -771,78 +788,3 @@ def trsv_win_build(m, lo, hi, ind, vals, nb, reversed_):
         "L_dest": L_dest,
         "L_srcpos": L_srcpos,
     }
-
-
-def benes_plan(k: int, src) -> np.ndarray:
-    """Per-stage cross masks of a Benes network realizing the static
-    permutation out[j] = in[src[j]] on n = 2**k slots (kernels/xla/route.py
-    applies them as masked xor-stride rolls on device). Returns
-    (2k-1, n) uint8, stage strides 2^(k-1), ..., 2, 1, 2, ..., 2^(k-1).
-
-    Native O(n log n) looping solver; the Python fallback walks the same
-    cycles (fine for tests, too slow past ~1e5 on this throttled host)."""
-    src = _i64(src)
-    n = 1 << int(k)
-    if src.size != n:
-        raise ValueError(f"src must have {n} entries, got {src.size}")
-    if k == 0:
-        return np.zeros((0, 1), dtype=np.uint8)
-    masks = np.empty((2 * int(k) - 1, n), dtype=np.uint8)
-    lib = _load()
-    if lib is not None:
-        i64p = ctypes.POINTER(ctypes.c_int64)
-        u8p = ctypes.POINTER(ctypes.c_uint8)
-        lib.benes_plan(
-            ctypes.c_int64(int(k)),
-            src.ctypes.data_as(i64p),
-            masks.ctypes.data_as(u8p),
-        )
-        return masks
-    return _benes_numpy(int(k), src, masks)
-
-
-def _benes_numpy(k: int, src: np.ndarray, masks: np.ndarray) -> np.ndarray:
-    n = 1 << k
-    q_of = src.copy()
-    a = np.empty(n, dtype=np.int64)
-    a[src] = np.arange(n)
-    out_of = np.arange(n)
-    o_at = np.arange(n)
-    color = np.zeros(n, dtype=np.uint8)
-    for d in range(k - 1):
-        s = 1 << (k - 1 - d)
-        t1, t2 = d, 2 * k - 2 - d
-        done = np.zeros(n, dtype=bool)
-        for j0 in range(n):
-            e = int(o_at[j0])
-            if done[e]:
-                continue
-            c = 0
-            while True:
-                color[e] = c
-                done[e] = True
-                e2 = int(a[int(q_of[e]) ^ s])
-                color[e2] = 1 - c
-                done[e2] = True
-                e3 = int(o_at[int(out_of[e2]) ^ s])
-                if done[e3]:
-                    break
-                e = e3
-        lo = (np.arange(n) & s) == 0
-        ci = color[a[lo.nonzero()[0]]]
-        masks[t1][lo] = ci
-        masks[t1][~lo] = ci  # partner slots share the switch
-        co = color[o_at[lo.nonzero()[0]]]
-        masks[t2][lo] = co
-        masks[t2][~lo] = co
-        q_of = (q_of & ~s) | np.where(color == 1, s, 0)
-        out_of = (out_of & ~s) | np.where(color == 1, s, 0)
-        a[q_of] = np.arange(n)
-        o_at[out_of] = np.arange(n)
-    # middle stage, stride 1
-    tm = k - 1
-    ev = np.arange(0, n, 2)
-    cr = (q_of[o_at[ev]] != ev).astype(np.uint8)
-    masks[tm][ev] = cr
-    masks[tm][ev + 1] = cr
-    return masks

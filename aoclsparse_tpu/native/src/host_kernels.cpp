@@ -2,7 +2,7 @@
 //
 // The reference implements these in C++ inside the library proper
 // (ILU0: solvers/aoclsparse_ilu0.hpp:37-112; the clean-CSR/level analysis
-// lives in analysis/aoclsparse_csr_util.*). In the TPU-native design the
+// lives in analysis/aoclsparse_csr_util.*). In this library the
 // device executes wavefront-blocked solves, but the one-time factorization
 // and dependency-level analysis are host planner work — implemented here in
 // C++ with a numpy fallback in Python (aoclsparse_tpu/native/__init__.py).
@@ -144,7 +144,7 @@ int64_t spgemm_nnz(int64_t mA,
 // ---------------------------------------------------------------------------
 // Full Gustavson product expansion with per-row sorted merge: emits the
 // product triples (pa, pb, pc) ordered by (row, col) plus C's structure in
-// one pass — the symbolic stage of the TPU product-expansion SpGEMM
+// one pass — the symbolic stage of the product-expansion SpGEMM
 // (ops/level3/spgemm.py). ~100x the numpy sort path.
 // Buffers: pa/pb/pc sized P (total products, precomputed by caller);
 // Cind capacity P. Returns nnzC.
@@ -455,9 +455,9 @@ void spgemm_pattern_fill(int64_t mA,
 // ---------------------------------------------------------------------------
 // Reverse Cuthill-McKee ordering on the symmetrized pattern of A.
 // Bandwidth reduction is the planner's lever for making general matrices
-// band-compressible on TPU (the banded-window execution form): the
-// reference never needs this (its gather-based kernels are
-// structure-agnostic on x86), so this is a new TPU-motivated analysis.
+// band-compressible (the banded-window execution forms): the reference
+// never needs this (its gather-based kernels are structure-agnostic on
+// x86), so this is a new analysis.
 // perm[k] = original index of the row placed at position k.
 // Returns the post-permutation half bandwidth (max |perm^-1[i]-perm^-1[j]|).
 // ---------------------------------------------------------------------------
@@ -1032,151 +1032,6 @@ void trsv_win_fill_d(int64_t m, const int64_t *lo, const int64_t *hi,
     trsv_win_fill_impl<double>(m, lo, hi, ind, vals, nb, reversed, WL,
                                prefL, prefD, D, Lw,
                                D_dest, D_srcpos, L_dest, L_srcpos);
-}
-
-} // extern "C"
-
-// ---------------------------------------------------------------------------
-// Benes-network routing plan for STATIC permutations (kernels/xla/route.py).
-//
-// A fixed permutation applied per call (scatter-tail SpMV contribution
-// reorder, SpGEMM extraction) costs the measured ~13 ns/element as an XLA
-// gather on this stack; as a Benes network it becomes 2*log2(n)-1 stages of
-// two rolls + two selects each — streaming-rate VPU work. This solver runs
-// ONCE at plan time and emits the per-stage cross masks.
-//
-// Topology (xor-stride convention, matching the device apply):
-//   stage t in [0, 2k-1): stride s_t = 2^(k-1-t) for t < k, else 2^(t-k+1).
-//   cross mask c_t[i] == c_t[i^s_t]; apply: v'[i] = c_t[i] ? v[i^s_t] : v[i].
-//
-// Settings by the classic Waksman looping argument, iterated level by level
-// (levels d = 0..k-1, stride s = 2^(k-1-d); level d sets stages d and
-// 2k-2-d, the middle level sets the single stage k-1). Element e (labelled
-// by its OUTPUT slot) starts at input position src[e]; after level d both
-// its current input- and output-side positions agree on all bits >= s.
-// O(n log n) total. Distinct from, but same looping argument as, the
-// textbook construction (Waksman 1968).
-
-static void benes_plan_impl(int64_t k, const int64_t *src, uint8_t *masks)
-{
-    const int64_t n = int64_t(1) << k;
-    const int64_t nstages = 2 * k - 1;
-    // q_of[e]: current input-side position of element e
-    // a[q]: element at input-side position q
-    // elem e's output-side position is out_of[e]; o_at[j] element at j
-    std::vector<int64_t> q_of(n), a(n), out_of(n), o_at(n);
-    std::vector<uint8_t> color(n), done(n);
-    for (int64_t e = 0; e < n; ++e) {
-        q_of[e] = src[e];
-        a[src[e]] = e;
-        out_of[e] = e;
-        o_at[e] = e;
-    }
-    const unsigned hw = std::max(1u, std::thread::hardware_concurrency());
-    for (int64_t d = 0; d + 1 < k; ++d) {
-        const int64_t s = int64_t(1) << (k - 1 - d);
-        const int64_t t1 = d, t2 = 2 * k - 2 - d;
-        std::fill(done.begin(), done.end(), uint8_t(0));
-        // At depth d the remaining routing decomposes into 2^d INDEPENDENT
-        // sub-networks: every position's bits above (k-d) are already
-        // fixed, and both cycle-partner jumps (q^s, j^s with s=2^(k-1-d))
-        // stay inside one 2^(k-d)-aligned block. Walk the alternating
-        // (input-pair, output-pair) coloring cycles per block, blocks
-        // threaded (the cycle walk is the whole cost of the plan —
-        // ~3 min single-threaded at k=24 on this host).
-        const int64_t blk = int64_t(1) << (k - d); // block size
-        const int64_t nblk_d = int64_t(1) << d;
-        auto walk_blocks = [&](int64_t b0, int64_t b1) {
-            for (int64_t b = b0; b < b1; ++b) {
-                const int64_t lo = b * blk, hi = lo + blk;
-                for (int64_t j0 = lo; j0 < hi; ++j0) {
-                    int64_t e = o_at[j0];
-                    if (done[e])
-                        continue;
-                    uint8_t c = 0;
-                    while (true) {
-                        color[e] = c;
-                        done[e] = 1;
-                        const int64_t qp = q_of[e] ^ s; // input partner
-                        int64_t e2 = a[qp];
-                        color[e2] = uint8_t(1 - c);
-                        done[e2] = 1;
-                        const int64_t jp = out_of[e2] ^ s; // output partner
-                        int64_t e3 = o_at[jp];
-                        if (done[e3])
-                            break;
-                        e = e3; // constraint: color[e3] == c
-                    }
-                }
-            }
-        };
-        const unsigned nt =
-            unsigned(std::min<int64_t>(hw, std::max<int64_t>(1, nblk_d)));
-        if (nt <= 1 || nblk_d <= 1) {
-            walk_blocks(0, nblk_d);
-        } else {
-            std::vector<std::thread> ths;
-            for (unsigned t = 0; t < nt; ++t) {
-                const int64_t b0 = nblk_d * t / nt, b1 = nblk_d * (t + 1) / nt;
-                if (b0 < b1)
-                    ths.emplace_back(walk_blocks, b0, b1);
-            }
-            for (auto &th : ths)
-                th.join();
-        }
-        // stage masks from colors (cross when the bit-s-clear slot's
-        // element is colored 1); then advance both positions by bit s —
-        // all elementwise, range-threaded
-        auto finish_range = [&](int64_t q0, int64_t q1) {
-            for (int64_t q = q0; q < q1; ++q) {
-                if (q & s)
-                    continue;
-                const uint8_t ci = color[a[q]];
-                masks[t1 * n + q] = ci;
-                masks[t1 * n + (q ^ s)] = ci;
-                const uint8_t co = color[o_at[q]];
-                masks[t2 * n + q] = co;
-                masks[t2 * n + (q ^ s)] = co;
-            }
-            for (int64_t e = q0; e < q1; ++e) {
-                q_of[e] = (q_of[e] & ~s) | (color[e] ? s : 0);
-                out_of[e] = (out_of[e] & ~s) | (color[e] ? s : 0);
-            }
-        };
-        if (hw <= 1 || n < (int64_t(1) << 20)) {
-            finish_range(0, n);
-        } else {
-            std::vector<std::thread> ths;
-            for (unsigned t = 0; t < hw; ++t)
-                ths.emplace_back(finish_range, n * t / hw, n * (t + 1) / hw);
-            for (auto &th : ths)
-                th.join();
-        }
-        for (int64_t e = 0; e < n; ++e) {
-            a[q_of[e]] = e;
-            o_at[out_of[e]] = e;
-        }
-    }
-    // middle stage (stride 1): cross where input/output bit0 differ
-    if (k >= 1) {
-        const int64_t tm = k - 1;
-        for (int64_t j = 0; j < n; j += 2) {
-            const int64_t e = o_at[j];
-            const uint8_t cr = uint8_t(q_of[e] != j);
-            masks[tm * n + j] = cr;
-            masks[tm * n + j + 1] = cr;
-        }
-    }
-    (void)nstages;
-}
-
-extern "C" {
-
-// src[j] = input position feeding output slot j (a permutation of [0, 2^k)).
-// masks: caller-allocated (2k-1) * 2^k uint8 buffer, stage-major.
-void benes_plan(int64_t k, const int64_t *src, uint8_t *masks)
-{
-    benes_plan_impl(k, src, masks);
 }
 
 } // extern "C"

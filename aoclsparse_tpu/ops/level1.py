@@ -231,8 +231,7 @@ def sctrs(x, stride: int, y, kid: Optional[int] = None):
     return y.at[: x.shape[0] * stride : stride].set(x)
 
 
-# KAT rows for introspection parity (each op has one XLA row; Pallas rows can
-# shadow them on TPU later)
+# KAT rows for introspection parity (each op has one XLA row)
 for _op, _fn in [
     ("axpyi", _axpyi),
     ("doti", _dot),

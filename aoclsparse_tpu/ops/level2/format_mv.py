@@ -331,9 +331,9 @@ def blkcsrmv(
 
     Accepts the reference's blkcsr layout (produced by csr2blkcsr): blocks of
     nRowsblk x 8 columns, per-subrow uint8 column masks, values stored
-    subrow-sequential in mask-bit order. The AVX512 mask expansion has no TPU
-    analog, so the shim decodes (vectorized numpy) back to COO triples and
-    runs the segment-sum kernel; the optimized TPU path is the handle API."""
+    subrow-sequential in mask-bit order. The AVX512 mask expansion has no
+    device analog, so the shim decodes (vectorized numpy) back to COO triples
+    and runs the segment-sum kernel; the optimized path is the handle API."""
     op, _ = _common_checks(descr, op, m, n, x, m, x, general_only=True)
     if masks is None or blk_csr_val is None or blk_col_ind is None or blk_row_ptr is None:
         raise AoclSparseError(Status.invalid_pointer, "null blkcsr array")

@@ -3,7 +3,7 @@
 Reference: aoclsparse_?csrmm (level3/aoclsparse_csrmm.cpp:32-46 wrappers over
 aoclsparse_csrmm_t, .hpp 795 LoC) with row-/column-major B and C.
 
-TPU redesign: descriptor/op resolve through the planner exactly like mv
+Redesign: descriptor/op resolve through the planner exactly like mv
 (DOID general-form copies keep kernels uniform); the registry picks a padded
 or segment-sum kernel. The reference's `order` argument selects raw-pointer
 layout; jnp arrays carry logical (rows, cols) shape, so `order` here only
@@ -40,21 +40,12 @@ registry.register("mm", KernelEntry(1, "xla_ell", K.spmm_ell, "ell", "any", 0))
 registry.register("mm", KernelEntry(2, "xla_ellhyb", K.spmm_ellhyb, "ellhyb", "any", 0))
 registry.register("mm", KernelEntry(3, "xla_bwdg", K.spmm_bwd, "bwdg", "any", 1))
 
-from ...kernels.pallas.spmv import spmm_bandtm as _spmm_bandtm  # noqa: E402
-from ...kernels.pallas.spmv import spmm_bandmxu as _spmm_bandmxu  # noqa: E402
-
-registry.register("mm", KernelEntry(4, "pallas_bandtm", _spmm_bandtm, "bandtm", "any", 2))
-# MXU block-window twin (mm KID 5): 2x band bytes but the per-column VPU
-# FMA chain becomes real (256, 128) x (256, K) MXU matmuls, and no RHS
-# width cap (bandtm is VMEM-capped at BANDTM_MAX_K). Explicit-KID /
-# autotune row until measured ahead on the real chip; requires W <= 129.
-registry.register("mm", KernelEntry(5, "pallas_bandmxu", _spmm_bandmxu, "bandtm", "any", 1))
-registry.register("mm", KernelEntry(6, "spmm_gen", K.spmm_gen, "gen", "any", 1))
-# diag-form SpMM (mm KID 7): Pallas C^T lane-shift kernel when the diagonal
-# span fits VMEM (pwtk class), fused static-slice XLA otherwise — replaces
-# the gather fallback that served mv-selected diag plans (~400 ms at K=64
-# on the pwtk stand-in; kernels/xla/spmm.py spmm_diag)
+# diag-form SpMM (mm KID 7): fused static-slice shifts over the dense RHS
+# (kernels/xla/spmm.py spmm_diag) for operands pinned to the diag form
 registry.register("mm", KernelEntry(7, "diag_shift", K.spmm_diag, "diag", "any", 1))
+
+#: execution forms with an mm kernel row
+_MM_FORMS = ("segsum", "ell", "ellhyb", "bwdg", "diag")
 
 
 @jax.jit
@@ -62,7 +53,14 @@ def _epilogue(c_new, alpha, beta, c_old):
     return alpha * c_new + beta * c_old
 
 
+def _mixed_requested(dtype) -> bool:
+    """Precision policy for the band/diag SpMM forms (docs/precision.md)."""
+    import os
 
+    return (
+        os.environ.get("AOCLSPARSE_TPU_MIXED_PRECISION", "0") in ("1", "true")
+        and jnp.dtype(dtype) == jnp.dtype(jnp.float32)
+    )
 
 
 def mm(
@@ -132,192 +130,40 @@ def mm(
         else:
             raise AoclSparseError(Status.invalid_kid, f"kid {kid} not in table for 'mm'")
     if kind is None:
-        # empirical pin from autotune_mm (keyed by RHS width — bandtm
-        # eligibility depends on it)
+        # empirical pin from autotune_mm (keyed by RHS width)
         tuned = getattr(plan, "_mm_tuned", None)
         if tuned is not None:
             kind = tuned.get((descr.type, descr.fill_mode, descr.diag_type, op, k))
-            if kind == "bandmxu":  # autotune label for the KID-5 MXU twin
-                for e2 in registry.table("mm"):
-                    if e2.name == "pallas_bandmxu":
-                        kid = e2.kid
-                        break
-                kind = "bandtm"
-    if kind is None:
-        # TPU: group-banded MXU form when the band blowup is acceptable
-        # (gathers are ~400x off the stream rate there; see planner notes)
-        import os
-
-        from ...core.context import get_context
-        from ...planner.plan import BANDTM_MAX_K, BWD_CAP, BWD_MAX_W, _bwd_window
-
-        force_generic = os.environ.get("AOCLSPARSE_TPU_FORCE_GENERIC", "0") in ("1", "true")
-        ctx = get_context()
-        if (ctx.is_tpu or ctx.pallas_ok) and not force_generic:
-            eff = plan.effective_for(descr, op, A.dtype)
-            win = _bwd_window(eff, G=128)
-            if win is not None:
-                W, _ = win
-                if W <= 2 * BWD_MAX_W and eff.m * W <= BWD_CAP * max(eff.nnz, 1):
-                    # Pallas row-aligned band SpMM when the window fits its
-                    # VMEM budget (~3x less HBM traffic than the G=512
-                    # group form); falls through to bwdg otherwise
-                    # K cap: the kernel holds 9 (2*TM, K) window copies in
-                    # VMEM (~18 KB/f32 column at TM=256) — wide RHS takes the
-                    # bwdg scan instead of failing the Mosaic compile; Mosaic
-                    # also rejects complex/64-bit traces (dtype gate)
-                    pallas_dtype = jnp.dtype(A.dtype) in (
-                        jnp.dtype(jnp.float32),
-                        jnp.dtype(jnp.bfloat16),
-                    )
-                    # the MXU kernel pads K to a lane multiple internally
-                    # (spmm_bandmxu); K >= 32 keeps the pad waste under 4x,
-                    # and even padded it beats the bwdg scan (cant stand-in
-                    # at K=64 measured the scan/gather path at 663 ms)
-                    kind = (
-                        "bandtm"
-                        if ctx.pallas_ok
-                        and pallas_dtype
-                        and B.shape[1] >= 32
-                        and -(-B.shape[1] // 128) * 128 <= BANDTM_MAX_K
-                        else "bwdg"
-                    )
     form = plan.exec_form_for(descr, op, kind=kind, dtype=A.dtype)
-    if form.kind == "gen" and getattr(form, "gen_bandt", False):
-        # general-sparsity SpMM (mm KID 6): the gen composite's permuted
-        # band rides the Pallas row-aligned band-SpMM kernel; gated like
-        # bandtm (Mosaic dtype, lane-multiple K, VMEM-motivated K cap)
-        from ...core.context import get_context
-        from ...planner.plan import BANDTM_MAX_K
-
-        ctx = get_context()
-        # non-lane-multiple K is PADDED to 128 at the call site below (the
-        # K%128 gate previously dropped every K=64 real-matrix product to
-        # the gather rebuild — webbase stand-in measured 674 ms vs the band
-        # engine's ms-scale)
-        pallas_ok = (
-            (ctx.is_tpu or ctx.pallas_ok)
-            and jnp.dtype(A.dtype) in (jnp.dtype(jnp.float32), jnp.dtype(jnp.bfloat16))
-            and -(-B.shape[1] // 128) * 128 <= BANDTM_MAX_K
-            # W must fit the kernel tile (TM adapts below): in-2004's W=488
-            # gen band asserted out of the fixed TM=256. VMEM cap at the
-            # PROVEN W<=256 — both W=488 (TM=512) and W=728 (TM=768)
-            # crashed the Mosaic compile (the _kernel_mm window holds 9
-            # (2*TM, K) copies plus the W-step FMA chain's live slices)
-            and form.bwd_W <= 256
-            and kid in (None, 6)
-        )
-        if not pallas_ok:
-            form = None  # falls through to the gather rebuild below
-    elif form.kind == "gen":
-        form = None
-    if (
-        kind == "bandtm"
-        and (form is None or form.kind != "bandtm")
-        and kid is None
-    ):
-        # the row-aligned bandtm window can exceed its kernel cap
-        # (BANDTM_MAX_W) even when the group window qualified; the
-        # group-banded MXU scan still serves it — retry before giving the
-        # product to the gather fallback (cant stand-in at K=64 measured
-        # the gather path at ~530 ms vs the scan engine)
-        try:
-            form2 = plan.exec_form_for(descr, op, kind="bwdg", dtype=A.dtype)
-            if form2 is not None and form2.kind == "bwdg":
-                form = form2
-        except Exception:
-            pass
-    if form is None or form.kind not in (
-        "segsum", "ell", "ellhyb", "bwdg", "bandtm", "gen", "diag",
-    ):
+    if form.kind not in _MM_FORMS:
         # the kind=None plan slot can hold an mv-selected/mv-autotuned form
-        # (diag/bandt/bwd) that has no mm kernel row: rebuild with a
+        # (bwd, gen, sell, host) that has no mm kernel row: rebuild with a
         # gather form mm can dispatch instead of failing the registry lookup
-        from ...planner.plan import gather_fallback_kind
+        from ...planner.plan import choose_mv_format
 
         eff = plan.effective_for(descr, op, A.dtype)
-        form = plan.exec_form_for(descr, op, kind=gather_fallback_kind(eff), dtype=A.dtype)
+        form = plan.exec_form_for(descr, op, kind=choose_mv_format(eff), dtype=A.dtype)
     e = registry.select("mm", fmt=form.kind, kid=kid)
     Bc = B.astype(A.dtype)
-    if form.kind == "bandtm" and e.name == "pallas_bandmxu":
-        import os
-
-        from ...core.context import get_context
-
-        has_spill = form.sp_ind is not None and bool(form.sp_ind.shape[0])
-        from ..level2.mv import _zero_operands
-
-        zero_i, zero_v = _zero_operands(Bc.dtype)
-        mixed = (
-            os.environ.get("AOCLSPARSE_TPU_MIXED_PRECISION", "0") in ("1", "true")
-            and Bc.dtype == jnp.float32
-        )
-        c_new = e.fn(
-            form.band_mxu_dt(bf16=mixed),
-            Bc,
-            form.sp_val if has_spill else zero_v,
-            form.sp_ind if has_spill else zero_i,
-            form.sp_rows if has_spill else zero_i,
-            m=form.m,
-            padL=form.bwd_padL,
-            start=form.bandt_start,
-            TM=1024 if get_context().is_tpu else 256,
-            interpret=not get_context().is_tpu,
-            has_spill=has_spill,
-        )
-    elif form.kind == "bandtm":
-        from ...core.context import get_context
-
-        has_spill = form.sp_ind is not None and bool(form.sp_ind.shape[0])
-        from ..level2.mv import _zero_operands
-
-        zero_i, zero_v = _zero_operands(Bc.dtype)
-        c_new = e.fn(
-            form.bwd_val,
-            Bc,
-            form.sp_val if has_spill else zero_v,
-            form.sp_ind if has_spill else zero_i,
-            form.sp_rows if has_spill else zero_i,
-            W=form.bwd_W,
-            padL=form.bwd_padL,
-            start=form.bandt_start,
-            TM=256 if get_context().is_tpu else max(64, -(-form.bwd_W // 8) * 8),
-            interpret=not get_context().is_tpu,
-            has_spill=has_spill,
-        )
-    elif form.kind == "diag":
-        import os
-
-        from ...core.context import get_context
-
-        mixed = (
-            os.environ.get("AOCLSPARSE_TPU_MIXED_PRECISION", "0") in ("1", "true")
-            and Bc.dtype == jnp.float32
-        )
+    if form.kind == "diag":
         dv = form.dia_val
-        if mixed:
+        if _mixed_requested(Bc.dtype):
             if getattr(form, "_dia_val_bf16", None) is None:
                 form._dia_val_bf16 = dv.astype(jnp.bfloat16)
             dv = form._dia_val_bf16
         c_new = e.fn(
             dv, form.dia_offs, Bc, form.m, form.dia_L, form.dia_n_pad,
             offs_static=form.dia_offs_static,
-            interpret=not get_context().is_tpu,
         ).astype(Bc.dtype)
     elif form.kind == "segsum":
         c_new = e.fn(form.ind, form.val, form.row_ids, Bc, form.m)
     elif form.kind == "ell":
         c_new = e.fn(form.ell_ind, form.ell_val, Bc)
     elif form.kind == "bwdg":
-        import os
-
         Bp = jnp.pad(
             Bc, ((form.bwd_padL, form.bwd_n_pad - form.bwd_padL - form.n), (0, 0))
         )
-        mixed = (
-            os.environ.get("AOCLSPARSE_TPU_MIXED_PRECISION", "0") in ("1", "true")
-            and Bc.dtype == jnp.float32
-        )
+        mixed = _mixed_requested(Bc.dtype)
         wv = form.bwd_val
         if mixed:
             if getattr(form, "_bwd_val_bf16", None) is None:
@@ -326,53 +172,6 @@ def mm(
         c_new = e.fn(wv, Bp, form.bwd_G, form.bwd_W, form.bwd_base8, form.bwd_n_pad, mixed)[
             : form.m
         ]
-    elif form.kind == "gen":
-        import os
-
-        from ...core.context import get_context
-        from ..level2.mv import _zero_aux, _zero_operands
-
-        mixed = (
-            os.environ.get("AOCLSPARSE_TPU_MIXED_PRECISION", "0") in ("1", "true")
-            and Bc.dtype == jnp.float32
-        )
-        has_spill = form.sp_ind is not None and bool(form.sp_ind.shape[0])
-        has_hub = form.hub_cols is not None and bool(form.hub_cols.shape[0])
-        has_hubrow = form.hubr_rows is not None and bool(form.hubr_rows.shape[0])
-        has_flip = form.gen_flip is not None
-        zero_i, zero_v = _zero_operands(Bc.dtype)
-        zero_m, zero_b = _zero_aux(Bc.dtype)
-        is_tpu = get_context().is_tpu
-        c_new = e.fn(
-            form.bandt_rows(bf16=mixed),
-            Bc,
-            form.gen_perm,
-            form.gen_out,
-            form.gen_flip if has_flip else zero_b,
-            form.hub_slab if has_hub else zero_m,
-            form.hub_cols if has_hub else zero_i,
-            form.hubr_slab if has_hubrow else zero_m,
-            form.hubr_rows if has_hubrow else zero_i,
-            form.sp_val if has_spill else zero_v,
-            form.sp_ind if has_spill else zero_i,
-            form.sp_rows if has_spill else zero_i,
-            Bblk=form.gen_B,
-            W=form.bwd_W,
-            padL=form.bwd_padL,
-            start=form.bandt_start,
-            # the band kernel requires W <= TM; widen the tile for wide gen
-            # bands (VMEM stays bounded: 9 window copies x 2*TM x K)
-            TM=max(256, -(-form.bwd_W // 128) * 128)
-            if is_tpu
-            else max(64, -(-form.bwd_W // 8) * 8),
-            m=form.m,
-            m_pad=form.gen_m_pad,
-            interpret=not is_tpu,
-            has_hub=has_hub,
-            has_hubrow=has_hubrow,
-            has_spill=has_spill,
-            has_flip=has_flip,
-        )
     else:
         c_new = e.fn(
             form.ell_ind, form.ell_val, form.sp_ind, form.sp_val, form.sp_rows, Bc, form.m

@@ -2,8 +2,8 @@
 level3/aoclsparse_trsm.{cpp,hpp}; the reference parallelizes TRSV column-wise
 across RHS with OpenMP, trsm.hpp:149).
 
-TPU redesign: the blocked lax.scan solve (kernels/xla/trsv.py) is natively
-multi-RHS — the (nb, k) block solves batch over RHS columns on the MXU — so
+Redesign: the blocked lax.scan solve (kernels/xla/trsv.py) is natively
+multi-RHS — the (nb, k) block solves batch over RHS columns — so
 trsm is the same kernel as trsv with a matrix right-hand side.
 """
 

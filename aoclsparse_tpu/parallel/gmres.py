@@ -22,6 +22,9 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 from .placement import put
 
+#: contractions must not lower to TF32 (kernels/xla/spmv.py)
+HIGHEST = jax.lax.Precision.HIGHEST
+
 __all__ = ["gmres_bwd_jit", "dist_gmres_bwd", "dist_gmres_bwd_halo"]
 
 
@@ -55,7 +58,7 @@ def gmres_bwd_jit(
             [jax.lax.dynamic_slice_in_dim(xr, base8 + j, nblk, 0) for j in range(W // 8)],
             axis=1,
         )
-        y = jnp.einsum("brw,bw->br", win_val, pats).reshape(-1)[:mq]
+        y = jnp.einsum("brw,bw->br", win_val, pats, precision=HIGHEST).reshape(-1)[:mq]
         if sp_ind is not None and sp_ind.shape[0]:
             y = y + jax.ops.segment_sum(
                 sp_val * v[sp_ind], sp_rows, num_segments=mq, indices_are_sorted=True
@@ -68,10 +71,10 @@ def gmres_bwd_jit(
     def inner(j, carry):
         V, H, g, c, s = carry
         w = matvec(V[j])
-        hcol = V @ w  # (R+1,)
+        hcol = jnp.matmul(V, w, precision=HIGHEST)  # (R+1,)
         mask = jnp.arange(R + 1) <= j
         hcol = jnp.where(mask, hcol, 0)
-        w = w - hcol @ V
+        w = w - jnp.matmul(hcol, V, precision=HIGHEST)
         hh = jnp.sqrt(jnp.sum(w * w))
         V = V.at[j + 1].set(w / jnp.maximum(hh, tiny))
         hcol = hcol.at[j + 1].set(hh)
@@ -114,7 +117,7 @@ def gmres_bwd_jit(
         y = jax.lax.linalg.triangular_solve(
             H[:R, :R] + jnp.eye(R, dtype=dtype) * tiny, g[:R, None], left_side=True, lower=False
         )[:, 0]
-        x = x + V[:R].T @ y
+        x = x + jnp.matmul(V[:R].T, y, precision=HIGHEST)
         return (x, ncyc + 1, jnp.abs(g[R]))
 
     r0 = b - matvec(x0)
@@ -274,10 +277,10 @@ def dist_gmres_bwd_halo(
             V, H, g, c, s = carry
             w = matvec(wv_c, _apply_precond(prec_kind, dl, V[j]))
             # whole CGS projection = ONE fused psum of an (R+1)-vector
-            hcol = psum(V @ w)
+            hcol = psum(jnp.matmul(V, w, precision=HIGHEST))
             mask = jnp.arange(R + 1) <= j
             hcol = jnp.where(mask, hcol, 0)
-            w = w - hcol @ V
+            w = w - jnp.matmul(hcol, V, precision=HIGHEST)
             hh = nrm(w)
             V = V.at[j + 1].set(w / jnp.maximum(hh, tiny_c))
             hcol = hcol.at[j + 1].set(hh)
@@ -322,7 +325,7 @@ def dist_gmres_bwd_halo(
                 left_side=True,
                 lower=False,
             )[:, 0]
-            upd = V[:R].T @ y  # shard-local update
+            upd = jnp.matmul(V[:R].T, y, precision=HIGHEST)  # shard-local update
             x = x + _apply_precond(prec_kind, dl, upd)
             return (x, ncyc + 1, jnp.abs(g[R]))
 

@@ -1,13 +1,13 @@
-"""Multi-process (multi-controller) execution — the DCN story.
+"""Multi-process (multi-controller) execution.
 
 The reference's only parallelism is single-node OpenMP (SURVEY.md §2.9:
 "no MPI/NCCL/Gloo/UCX anywhere; multi-instance use is shown only as
-independent processes", tests/examples/sample_spmv_multi_instance.c). The
-TPU-native framework upgrades that to a real multi-host backend per
+independent processes", tests/examples/sample_spmv_multi_instance.c). This
+library upgrades that to a real multi-host backend per
 SURVEY.md §5.8: N controller processes, each owning a slice of the device
 mesh, running the SAME dist ops (parallel/spmv.py, parallel/cg.py) over a
-GLOBAL mesh — collectives ride ICI inside a host and DCN between hosts on
-real pods, or gloo TCP between CPU processes in tests.
+GLOBAL mesh — collectives ride NCCL between GPUs, or gloo TCP between CPU
+processes in tests.
 
 Usage (every process runs the same program):
 
@@ -17,10 +17,9 @@ Usage (every process runs the same program):
     y = dist_spmv_bwd_halo(mesh, form, mp.put(x, mesh, P("x")))
     y_host = mp.fetch(y)                          # numpy on every process
 
-On TPU pods, call `init_multiprocess()` with no arguments —
-`jax.distributed.initialize` autodetects the coordinator from the TPU
-environment. On CPU (tests, development) pass explicit coordinator/rank
-and the collectives are routed through gloo.
+Every run passes the coordinator address, process count and process id
+explicitly; on CPU (tests, development) the collectives are routed through
+gloo.
 """
 
 from __future__ import annotations
@@ -55,9 +54,9 @@ def init_multiprocess(
     CPU runs: forces the gloo TCP collectives backend (the CPU transport
     for cross-process psum/all_gather/ppermute) and, when
     `local_device_count` is given, that many local CPU devices — so an
-    N-process × D-device global mesh can be exercised without TPUs.
-    TPU pods: plain `jax.distributed.initialize`, which autodetects the
-    coordinator; collectives ride ICI/DCN.
+    N-process × D-device global mesh can be exercised without GPUs.
+    GPUs: plain `jax.distributed.initialize` with the given coordinator;
+    collectives ride NCCL.
     Must be called before any other JAX API touches the backend."""
     platform = None
     try:

@@ -19,7 +19,7 @@ __all__ = ["nnz_balanced_bounds", "pack_balanced_ell"]
 def nnz_balanced_bounds(ptr, n_parts: int, align: int = 8) -> np.ndarray:
     """Row boundaries (n_parts+1,) with ~equal nnz per part.
 
-    Boundaries are aligned down to `align` rows (TPU sublane) except the
+    Boundaries are aligned down to `align` rows (the 8-row band group) except the
     last; monotonicity is enforced so empty parts are legal for extreme
     skew."""
     ptr = np.asarray(ptr, dtype=np.int64)

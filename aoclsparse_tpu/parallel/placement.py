@@ -2,9 +2,9 @@
 multi-process (multi-controller) runs.
 
 The reference is single-node shared-memory (SURVEY.md §2.9: OpenMP only,
-"no MPI/NCCL/Gloo/UCX anywhere"), so it never needed this layer; the
-TPU-native rebuild does: a mesh may span processes (TPU pod slices over
-ICI/DCN, or the CPU gloo backend used by the multi-process tests), and
+"no MPI/NCCL/Gloo/UCX anywhere"), so it never needed this layer; this
+library does: a mesh may span processes (GPU hosts over NCCL, or the CPU
+gloo backend used by the multi-process tests), and
 `jax.device_put` cannot place host data onto devices another process owns.
 `put()` hides the difference:
 

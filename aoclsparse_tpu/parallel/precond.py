@@ -7,8 +7,8 @@ z_b = A_bb⁻¹ r_b — embarrassingly shard-local (no collectives, no
 loop-carried dependency), SPD whenever A is, and far stronger than diagonal
 Jacobi when the coupling inside a block matters (band operands). The block
 inverses are precomputed once on the host (planner-style structure work)
-and applied on-device as ONE batched einsum per iteration — MXU work, no
-gathers (the repo's kernel rule).
+and applied on-device as ONE batched einsum per iteration — dense work, no
+gathers.
 """
 
 from __future__ import annotations

@@ -177,7 +177,7 @@ def dist_spgemm_halo(mesh: Mesh, effA, effB, axis: str = "x"):
     columns; when those stay within one neighbor shard (banded/local
     structure — the same applicability condition as the SpMV halo path),
     only the boundary B-row windows move, as two `lax.ppermute`s of
-    host-packed value slabs (O(halo nnz) over ICI instead of O(nnzB)
+    host-packed value slabs (O(halo nnz) on the wire instead of O(nnzB)
     replication). The symbolic stage runs per-shard (native C++ marker
     scan on the local A rows); pb indices are host-remapped into the
     device-local [left-halo | local | right-halo] value buffer, so the

@@ -1,19 +1,18 @@
 """Distributed SpMV over a jax.sharding Mesh.
 
-The TPU-native rebuild of the reference's OpenMP row-partition parallelism
+The JAX rebuild of the reference's OpenMP row-partition parallelism
 (level2/aoclsparse_csrmv_kt.cpp:53 `#pragma omp parallel for` over rows;
 SURVEY.md §2.9): rows of the padded execution format are sharded over the
-mesh's "x" axis, the dense input vector is all-gathered over ICI (the analog
+mesh's "x" axis, the dense input vector is all-gathered (the analog
 of shared-memory reads of x), and each shard runs the local gather-multiply-
 reduce kernel. XLA overlaps the all-gather with local compute where possible.
 
-Partitioning is row-balanced by padding m to a multiple of n_devices *
-SUBLANE; nnz balancing lands with the planner's distributed mode.
+Partitioning is row-balanced by padding m to a multiple of n_devices * 8; nnz balancing lands with the planner's distributed mode.
 """
 
 from __future__ import annotations
 
-from functools import partial
+from functools import lru_cache, partial
 from typing import Optional
 
 import jax
@@ -23,6 +22,9 @@ from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
 
 from .placement import put
+
+#: contractions must not lower to TF32 (kernels/xla/spmv.py)
+HIGHEST = jax.lax.Precision.HIGHEST
 
 __all__ = [
     "make_mesh",
@@ -95,7 +97,7 @@ def dist_spmv_ell(mesh: Mesh, ell_ind, ell_val, x, axis: str = "x"):
 
 def dist_spmv_ell_sharded_x(mesh: Mesh, ell_ind, ell_val, x_sharded, axis: str = "x"):
     """y = A @ x with BOTH A rows and x sharded: x shards are all-gathered
-    over the mesh axis (ICI collective — the halo-exchange analog of shared-
+    over the mesh axis (a collective — the halo-exchange analog of shared-
     memory x reads; SURVEY.md §5.8) before the local reduce."""
 
     @partial(
@@ -146,9 +148,39 @@ def _bwd_halo_matvec(axis: str, ndev: int, W: int, rel_lo: int):
             [jax.lax.dynamic_slice_in_dim(xr, base_loc + j, gloc, 0) for j in range(W // 8)],
             axis=1,
         )
-        return jnp.einsum("brw,bw->br", wv_c, pats).reshape(-1)
+        return jnp.einsum("brw,bw->br", wv_c, pats, precision=HIGHEST).reshape(-1)
 
     return matvec, HL, HR
+
+
+def _sharded_band(form, mesh: Mesh, axis: str, nblk_pad: int):
+    """The form's (nblk, 8, W) band padded to nblk_pad row groups and
+    row-sharded over `axis`. Cached on the form (ExecForm.refresh drops the
+    cache), so repeated distributed calls do not re-shard a GB-scale
+    operand."""
+    cache = getattr(form, "_sharded_band", None)
+    if cache is None:
+        cache = form._sharded_band = {}
+    key = (mesh, axis, nblk_pad)
+    wv = cache.get(key)
+    if wv is None:
+        wv = form.bwd_val
+        if wv.shape[0] != nblk_pad:
+            wv = jnp.pad(wv, ((0, nblk_pad - wv.shape[0]), (0, 0), (0, 0)))
+        wv = cache[key] = put(wv, mesh, P(axis, None, None))
+    return wv
+
+
+@lru_cache(maxsize=64)
+def _halo_spmv_program(mesh: Mesh, axis: str, ndev: int, W: int, rel_lo: int):
+    """The halo SpMV as one compiled program per (mesh, band geometry): run
+    eagerly, the shard_map would execute its W/8 window slices one by one."""
+    matvec, _, _ = _bwd_halo_matvec(axis, ndev, W, rel_lo)
+    return jax.jit(
+        shard_map(
+            matvec, mesh=mesh, in_specs=(P(axis, None, None), P(axis)), out_specs=P(axis)
+        )
+    )
 
 
 def dist_spmv_bwd_halo(mesh: Mesh, form, x_sharded, axis: str = "x"):
@@ -156,7 +188,7 @@ def dist_spmv_bwd_halo(mesh: Mesh, form, x_sharded, axis: str = "x"):
     via `ppermute` — the §5.8(i) halo-exchange schedule: instead of
     all-gathering the whole x (O(n) bytes per device per call), each device
     receives just the W-wide boundary windows from its ring neighbors
-    (O(W) bytes over ICI), which XLA can overlap with the local einsum.
+    (O(W) bytes on the wire), which XLA can overlap with the local einsum.
 
     Requires a square banded ExecForm without spill whose halo fits inside
     one neighbor shard (the planner's band forms satisfy this for
@@ -168,27 +200,13 @@ def dist_spmv_bwd_halo(mesh: Mesh, form, x_sharded, axis: str = "x"):
         raise ValueError("halo path requires a spill-free band form")
     W = form.bwd_W
     rel_lo = 8 * form.bwd_base8 - form.bwd_padL
-    matvec, HL, HR = _bwd_halo_matvec(axis, ndev, W, rel_lo)
+    _, HL, HR = _bwd_halo_matvec(axis, ndev, W, rel_lo)
     m_pad = int(x_sharded.shape[0])
     mloc = m_pad // ndev
     if HL > mloc or HR > mloc:
         raise ValueError("halo wider than a shard: use the all-gather path")
-    nblk_pad = m_pad // 8
-    wv = form.bwd_val
-    if wv.shape[0] != nblk_pad:
-        wv = jnp.pad(wv, ((0, nblk_pad - wv.shape[0]), (0, 0), (0, 0)))
-    wv = put(wv, mesh, P(axis, None, None))
-
-    @partial(
-        shard_map,
-        mesh=mesh,
-        in_specs=(P(axis, None, None), P(axis)),
-        out_specs=P(axis),
-    )
-    def _local(wv_c, xloc):
-        return matvec(wv_c, xloc)
-
-    return _local(wv, x_sharded)
+    wv = _sharded_band(form, mesh, axis, m_pad // 8)
+    return _halo_spmv_program(mesh, axis, ndev, W, rel_lo)(wv, x_sharded)
 
 
 def dist_spmv_bwd_halo_overlap(mesh: Mesh, form, x_sharded, axis: str = "x"):
@@ -260,7 +278,7 @@ def dist_spmv_bwd_halo_overlap(mesh: Mesh, form, x_sharded, axis: str = "x"):
             ],
             axis=1,
         )
-        y_int = jnp.einsum("brw,bw->br", wv_c[g0:g1], pats_int)
+        y_int = jnp.einsum("brw,bw->br", wv_c[g0:g1], pats_int, precision=HIGHEST)
         # edge groups read the stitched halo window
         xe = jnp.concatenate([left, xloc, right])
 
@@ -275,7 +293,7 @@ def dist_spmv_bwd_halo_overlap(mesh: Mesh, form, x_sharded, axis: str = "x"):
                 ],
                 axis=1,
             )
-            return jnp.einsum("brw,bw->br", wv_c[b_lo:b_hi], pats)
+            return jnp.einsum("brw,bw->br", wv_c[b_lo:b_hi], pats, precision=HIGHEST)
 
         parts = []
         if g0:
@@ -297,8 +315,8 @@ def dist_spmm_bwd_halo(mesh: Mesh, form, B_sharded, axis: str = "x"):
     ring (`ppermute`, O(W·K) bytes instead of an O(n·K) all-gather), splits
     its row groups into INTERIOR groups whose B-windows lie inside the
     local shard and EDGE groups touching a halo, and runs the local compute
-    as a lax.scan of plain 2-D MXU matmuls (kernels/xla/spmm.py spmm_bwd —
-    batched dot_general is pathological on this stack). The interior scan
+    as a lax.scan of plain 2-D matmuls (kernels/xla/spmm.py spmm_bwd). The
+    interior scan
     depends only on the local B shard, so XLA may run it while the
     ppermutes are on the wire.
 
@@ -342,7 +360,7 @@ def dist_spmm_bwd_halo(mesh: Mesh, form, B_sharded, axis: str = "x"):
     def _scan_mm(wv_part, wins_part):
         def step(_, args):
             a_g, w_g = args
-            return None, jnp.dot(a_g, w_g, preferred_element_type=acc)
+            return None, jnp.dot(a_g, w_g, preferred_element_type=acc, precision=HIGHEST)
 
         _, outs = jax.lax.scan(step, None, (wv_part, wins_part))
         return outs
@@ -531,8 +549,8 @@ def dist_spmv_ell_halo_plan(mesh: Mesh, ell_ind, ell_val, x_sharded, axis: str =
     """General-sparsity SpMV with x SHARDED and a PLAN-DERIVED halo
     exchange: the host schedule (plan_general_halo) says exactly which x
     entries each device pair trades, the device program packs them with one
-    local gather, moves them with ONE `lax.all_to_all` (O(halo) bytes over
-    ICI/DCN, any structure), stitches [x_loc | recv] and runs the padded-ELL
+    local gather, moves them with ONE `lax.all_to_all` (O(halo) bytes,
+    any structure), stitches [x_loc | recv] and runs the padded-ELL
     reduce on host-remapped indices. Completes SURVEY.md §5.8(i) beyond the
     band-structured ppermute path (dist_spmv_bwd_halo). The schedule is
     cached on (id-stable) operands by the caller; returns y row-sharded."""
@@ -615,7 +633,7 @@ def dist_spmv_balanced_halo(mesh: Mesh, ptr, ind, val, x_sharded, axis: str = "x
     from .partition import nnz_balanced_bounds, pack_balanced_ell
 
     ndev = mesh.shape[axis]
-    # align=1: the padded-ELL halo path has no sublane constraint, and the
+    # align=1: the padded-ELL halo path has no row-group constraint, and the
     # default 8-row alignment can collapse cuts to 0 under extreme skew
     # (power-law heads with hundreds of nnz in the first few rows)
     bounds = nnz_balanced_bounds(ptr, ndev, align=1)

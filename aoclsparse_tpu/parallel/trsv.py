@@ -30,6 +30,9 @@ from jax.sharding import Mesh, PartitionSpec as P
 from .placement import put
 from jax import shard_map
 
+#: contractions must not lower to TF32 (kernels/xla/spmv.py)
+HIGHEST = jax.lax.Precision.HIGHEST
+
 __all__ = [
     "dist_trsv_pipeline",
     "dist_trsm_pipeline",
@@ -85,8 +88,8 @@ def _local_chunk_scan(Dinv_c, Lwin_c, b_c, w0, nb, WL):
 
     def step(w, args):
         Dik, lwk, bk = args
-        s = jnp.einsum("rw,wk->rk", lwk, w)
-        xk = jnp.dot(Dik, bk - s, preferred_element_type=Dik.dtype)
+        s = jnp.einsum("rw,wk->rk", lwk, w, precision=HIGHEST)
+        xk = jnp.dot(Dik, bk - s, preferred_element_type=Dik.dtype, precision=HIGHEST)
         w = jnp.concatenate([w, xk], axis=0)[-WL:]
         return w, xk
 

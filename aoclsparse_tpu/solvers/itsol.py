@@ -8,7 +8,7 @@ aoclsparse_itsol_?_init/_solve/_rci_solve (aoclsparse_itsol_functions.cpp:
 115-497), rinfo[100] statistics (RES_NORM=0, RHS_NORM=1, ITER=30,
 itsol_functions.hpp:40-44).
 
-TPU redesign (SURVEY.md §7): the RCI protocol keeps its exact job vocabulary
+Redesign (SURVEY.md §7): the RCI protocol keeps its exact job vocabulary
 (interrupt/stop/start/mv/precond/stopping_criterion) but becomes a Python
 stepper object — the functional analog of the reference's reverse
 communication; every vector update between bounces is a jitted device op.
@@ -40,6 +40,9 @@ from .options import (
     SOLVER_CG,
     default_registry,
 )
+
+#: contractions must not lower to TF32 (kernels/xla/spmv.py)
+HIGHEST = jax.lax.Precision.HIGHEST
 
 __all__ = [
     "RciJob",
@@ -317,7 +320,7 @@ class GmresRci:
         j = len(g)
         y = np.zeros(j, dtype=R.dtype)
         for i in range(j - 1, -1, -1):
-            acc = g[i] - R[i, i + 1 :] @ y[i + 1 :]
+            acc = g[i] - jnp.matmul(R[i, i + 1 :], y[i + 1 :], precision=HIGHEST)
             y[i] = acc / R[i, i]
         return y
 

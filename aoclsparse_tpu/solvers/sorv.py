@@ -13,7 +13,7 @@ stubs complex with not_implemented (aoclsparse_sorv.hpp:130-133); here the
 complex sweep is implemented (a strict superset of the reference surface,
 complex omega/alpha included).
 
-TPU form: the (D + omega*L) solve is a blocked triangular solve over a
+Device form: the (D + omega*L) solve is a blocked triangular solve over a
 value-scaled copy of the lower triangle (off-diagonal entries scaled by
 omega — a jitted elementwise pass over the cached triangle values).
 """

@@ -1,9 +1,7 @@
 """Collective ledger: count the cross-device collectives a distributed
 path actually issues, from its jaxpr (VERDICT r3 item 8b).
 
-The multi-host ≥70% scaling target (BASELINE.md) cannot be *measured* on a
-single-chip rig, so this is the honest stand-in: walk the traced program,
-record every collective primitive (psum/all-reduce, ppermute/halo,
+Walk the traced program and record every collective primitive (psum/all-reduce, ppermute/halo,
 all_gather, all_to_all, reduce_scatter) with its per-shard payload bytes,
 and separate the ones inside `while`/`scan` bodies — those are the
 per-iteration wire cost of a solver loop. A distributed CG that claims
@@ -21,65 +19,7 @@ from typing import Any, Dict, List
 import jax
 import numpy as np
 
-__all__ = ["collective_ledger", "ledger_summary", "predict_weak_scaling"]
-
-# ---- ICI wire model (VERDICT r4 item 8) -----------------------------------
-# v5e 2-D torus parameters (public "How to Scale Your Model" numbers):
-# ~4.5e10 B/s one-way per-link ICI bandwidth and ~1 us per-hop collective
-# launch latency. An all-reduce of B bytes over N chips costs
-# ~2*log2(N) latency hops (tree/ring establishment) + 2B/bw streaming;
-# a collective_permute (halo handoff) is one hop + B/bw; all_gather of a
-# per-shard B-byte slab streams (N-1)B/N ~ B at the ring rate.
-ICI_BW = 4.5e10  # bytes/s, one-way per link
-ICI_LAT = 1.0e-6  # seconds per hop
-
-
-def predict_weak_scaling(
-    summary: Dict[str, Any],
-    t_iter_s: float,
-    per_iteration_bytes: int = None,
-    n_devices=(2, 4, 8, 16, 64, 256),
-) -> Dict[str, Any]:
-    """Predicted WEAK-scaling efficiency of a solver loop: fixed per-shard
-    work (the measured single-chip per-iteration time t_iter_s) against the
-    per-iteration wire time derived from the ledger's collective counts and
-    payloads. Efficiency(N) = t_compute / (t_compute + t_wire(N)).
-
-    This is the computable single-rig stand-in for the BASELINE.md >=70%
-    multi-host target: the ledger gives the exact per-iteration collective
-    schedule, the ICI model prices it, and the binding term is reported so
-    a miss names its cause."""
-    bytes_iter = (
-        summary.get("per_iteration_bytes", 0)
-        if per_iteration_bytes is None
-        else per_iteration_bytes
-    )
-    counts = summary.get("per_iteration", {})
-    out = {}
-    for N in n_devices:
-        lat = 0.0
-        for op, cnt in counts.items():
-            if op == "all_reduce":
-                lat += cnt * 2 * np.log2(N) * ICI_LAT
-            else:  # permute / gather / all_to_all: one established hop
-                lat += cnt * ICI_LAT
-        stream = 2.0 * bytes_iter / ICI_BW  # both directions of the ring
-        t_wire = lat + stream
-        out[str(N)] = round(t_iter_s / (t_iter_s + t_wire), 4)
-    dominant = "latency" if counts else "none"
-    if bytes_iter / ICI_BW > sum(
-        c * 2 * np.log2(max(n_devices)) * ICI_LAT if op == "all_reduce" else c * ICI_LAT
-        for op, c in counts.items()
-    ):
-        dominant = "bandwidth"
-    return {
-        "t_iter_compute_ms": round(t_iter_s * 1e3, 4),
-        "per_iteration_bytes": int(bytes_iter),
-        "efficiency": out,
-        "binding_term": dominant,
-        "model": f"ICI bw={ICI_BW:.1e} B/s/link, lat={ICI_LAT:.0e} s/hop;"
-        " all_reduce=2*log2(N) hops, permute=1 hop; weak scaling",
-    }
+__all__ = ["collective_ledger", "ledger_summary"]
 
 # jaxpr primitive name -> wire-operation class
 _COLLECTIVES = {

@@ -1,4 +1,4 @@
-"""Numerical-debug modes — the TPU analog of the reference's sanitizer builds
+"""Numerical-debug modes — the analog of the reference's sanitizer builds
 (SURVEY.md §5.2: ASAN/Valgrind CMake options; no TSAN). Memory safety is
 XLA's problem here; what a sparse framework needs instead is (a) NaN/Inf
 trapping inside jitted code and (b) bitwise-deterministic reductions for
@@ -39,8 +39,8 @@ def deterministic_mode():
 
     prev = os.environ.get("XLA_FLAGS", "")
     if "--xla_gpu_deterministic_ops" not in prev:
-        # TPU reductions are deterministic by construction; the flag matters
-        # for the CPU/GPU fallbacks of the gather/scatter kernels.
+        # the flag matters for the gather/scatter kernels' atomics on GPU
+        # and for fast-math reassociation on CPU.
         os.environ["XLA_FLAGS"] = (prev + " --xla_cpu_enable_fast_math=false").strip()
     try:
         yield

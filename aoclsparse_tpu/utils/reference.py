@@ -2,7 +2,7 @@
 
 Analog of the reference's tests/include/aoclsparse_reference.hpp (ref_csrmv
 at :517, ref_csr2csc at :36, ref_doti at :867, ...). These are deliberately
-naive loop/dense implementations: tests compare every TPU kernel against them
+naive loop/dense implementations: tests compare every device kernel against them
 within the tolerance model of utils/tolerances.py.
 
 Everything here consumes plain numpy arrays (zero-based CSR unless noted).

@@ -30,7 +30,7 @@ def _safeguard(dtype) -> float:
         return 1.0
     if dt == np.float32:
         return 2.0
-    # low-precision TPU dtypes: scale safeguard with the wider eps
+    # low-precision dtypes (bf16/f16): scale safeguard with the wider eps
     return 4.0
 
 

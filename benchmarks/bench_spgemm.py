@@ -1,7 +1,8 @@
 #!/usr/bin/env python
-"""SpGEMM benchmark on the real TPU: band x band numeric (scan-of-matmuls)
-vs the product-expansion numeric, on the r1 reference case (262144-row band,
-8 nnz/row, ~16.7M products). Appends to benchmarks/BENCH_spgemm.jsonl."""
+"""SpGEMM numeric engines side by side: band x band (scan of dense matmuls,
+attached only with AOCLSPARSE_TPU_FORCE_BANDGEMM=1) vs the device product
+expansion, on a 262144-row band with 8 nnz/row (~16.7M products). Prints one
+JSON line per stage; times are host-clock seconds around synced calls."""
 
 import json
 import os
@@ -11,22 +12,18 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "BENCH_spgemm.jsonl")
 
 
 def emit(rec):
-    line = json.dumps(rec)
-    print(line, flush=True)
-    with open(OUT, "a") as f:
-        f.write(line + "\n")
+    print(json.dumps(rec), flush=True)
 
 
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
+    from aoclsparse_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
     import aoclsparse_tpu as ast
@@ -81,7 +78,6 @@ def main():
                 y = band_gemm_values(plan.band, eff.val, eff.val)
             sync(y)
             t = min(t, (time.perf_counter() - t1) / 5)
-            time.sleep(1.0)
         emit(
             {
                 "stage": "numeric_band",
@@ -91,7 +87,7 @@ def main():
         )
         yband = np.asarray(y[:64])
 
-    # expansion numeric (r1 baseline)
+    # expansion numeric
     y2 = _numeric(eff.val, eff.val, plan.pa, plan.pb, plan.pc, plan.nnz, False, False)
     sync(y2)
     t = float("inf")
@@ -101,7 +97,6 @@ def main():
             y2 = _numeric(eff.val, eff.val, plan.pa, plan.pb, plan.pc, plan.nnz, False, False)
         sync(y2)
         t = min(t, (time.perf_counter() - t1) / 3)
-        time.sleep(1.0)
     emit(
         {
             "stage": "numeric_expansion",

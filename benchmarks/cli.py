@@ -88,9 +88,9 @@ def main():
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
+    from aoclsparse_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     if PRECISIONS[args.precision] in (np.float64, np.complex128):
         jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp

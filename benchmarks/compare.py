@@ -11,7 +11,7 @@ tests/common/aoclsparse_stats.cpp:39).
 Usage:
     python benchmarks/compare.py runA.jsonl runB.jsonl [--alpha 0.05]
 
-Runs entirely host-side (no TPU); forces the CPU backend in-process.
+Runs entirely host-side; forces the CPU backend in-process.
 """
 
 from __future__ import annotations

@@ -1,8 +1,7 @@
 """Shared boilerplate for the example programs.
 
-Every example forces the CPU backend in-process (the repo rule: only one
-TPU-touching process at a time; examples are didactic, not benchmarks) and
-exposes a tiny check helper that prints PASS/FAIL like the reference samples
+Every example forces the CPU backend in-process (examples are didactic,
+not benchmarks, and leave the GPU to measurement runs) and exposes a tiny check helper that prints PASS/FAIL like the reference samples
 print their expected-vs-computed tables (tests/examples/README.md)."""
 
 import os

@@ -32,7 +32,7 @@ ptr = np.concatenate([[0], np.cumsum((dense != 0).sum(1))]).astype(np.int64)
 ind = np.nonzero(dense)[1].astype(np.int32)
 A = asp.create_csr(m, m, ptr, ind, dense[dense != 0])
 
-# 1) SpMV through the planner (general-sparsity composite on TPU targets)
+# 1) SpMV through the planner (a gather form by default)
 x = rng.standard_normal(m)
 y = asp.mv(1.0, A, MatrixDescriptor(), Operation.none, x, 0.0)
 check("circuit SpMV", y, dense @ x, tol=1e-9)
@@ -66,23 +66,13 @@ for i in range(m):
     got[i, ci[cp[i] : cp[i + 1]]] = cv[cp[i] : cp[i + 1]]
 check("circuit SpGEMM (pinned engine)", got, dense @ dense, tol=1e-8)
 
-# 4) General-sparsity SpMM (mm KID 6): the same gen composite applied to a
-#    dense RHS — permuted band on the Pallas band-SpMM kernel + hub MXU
-#    matmuls + spill (previously general structure took the gather mm)
+# 4) SpMM on the same operand (mm picks a gather form)
 K = 128
 B = rng.standard_normal((m, K)).astype(np.float32)
-try:
-    Cmm = asp.mm(1.0, A, MatrixDescriptor(), Operation.none, B, 0.0, kid=6)
-    check("circuit SpMM (gen composite)", np.asarray(Cmm), dense @ B, tol=1e-2)
-except asp.AoclSparseError:
-    # kid 6 gates on a Pallas-capable context (f32/bf16, lane-multiple K);
-    # the default dispatch serves the same product through a gather form
-    Cmm = asp.mm(1.0, A, MatrixDescriptor(), Operation.none, B, 0.0)
-    check("circuit SpMM (fallback form)", np.asarray(Cmm), dense @ B, tol=1e-2)
+Cmm = asp.mm(1.0, A, MatrixDescriptor(), Operation.none, B, 0.0)
+check("circuit SpMM", np.asarray(Cmm), dense @ B, tol=1e-2)
 
-# 5) Fused CG on the gen operand: pcg_solve iterates in PERMUTED space
-#    (the composite's O(m) x/y permute gathers leave the loop; the
-#    boundary pays them once — solvers/fused.py _gen_pspace)
+# 5) Fused CG: the whole preconditioned solve is one compiled program
 from aoclsparse_tpu.solvers.fused import pcg_solve
 
 spd = dense @ dense.T + m * np.eye(m)

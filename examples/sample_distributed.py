@@ -1,4 +1,4 @@
-"""TPU-native additions with no reference counterpart: row-sharded SpMV,
+"""Additions with no reference counterpart: row-sharded SpMV,
 distributed CG over a device mesh, and the fused one-dispatch
 preconditioned solver — run here on an 8-device virtual CPU mesh exactly
 like tests/ and the driver's multichip dryrun (parallel/, solvers/fused.py)."""

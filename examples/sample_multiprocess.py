@@ -11,8 +11,8 @@ cross real process boundaries, either run tests/test_multiprocess.py (a
     # shell 1                                   # shell 2
     python sample_multiprocess.py 0 2 &         python sample_multiprocess.py 1 2
 
-On a TPU pod, call init_multiprocess() with no arguments instead — the
-coordinator is autodetected and collectives ride ICI/DCN.
+On a GPU cluster, pass the coordinator address, process count and
+process id the same way; collectives then ride NCCL.
 """
 
 import sys

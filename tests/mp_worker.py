@@ -9,7 +9,7 @@ against the local numpy oracle. Prints MP-OK on success.
 This is the DCN-analog test story SURVEY.md §4 says the reference never
 needed ("no multi-node testing of any kind") but this framework must have:
 the collectives here cross process boundaries over gloo TCP exactly where a
-TPU pod run would cross DCN.
+multi-host GPU run would cross the network.
 """
 
 import os

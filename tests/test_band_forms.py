@@ -74,7 +74,8 @@ def test_trsv_win_unit_diag(rng):
 
 def test_trsv_win_inverse_variant(rng):
     """The pre-inverted-diagonal-block solve must match substitution within
-    the tolerance model (TPU default path, exercised here directly)."""
+    the tolerance model (the distributed pipeline's path, exercised here
+    directly)."""
     import jax.numpy as jnp
 
     from aoclsparse_tpu.kernels.xla.trsv import (

@@ -1,18 +1,20 @@
-"""Pallas transposed-band SpMV form (bandt, kernels/pallas/spmv.py):
-interpret-mode parity on CPU vs the dense oracle — band, peel spill,
-transpose, descriptors, update_values refresh. On the real chip this form
-is the default for band-compressible structure (measured ~1.8x the fused
-XLA bwd path; see bench.py)."""
+"""Band execution forms through the full dispatch: the XLA banded-window
+SpMV (mv KID 5, ``bwd``) and group-band SpMM (mm KID 3, ``bwdg``) — parity
+with the dense oracle over band, peel spill, transpose, descriptors,
+update_values refresh and mixed precision — plus the KIDs of the removed
+band kernels, which must raise invalid_kid."""
 
 import numpy as np
 import pytest
 
 import aoclsparse_tpu as ast
-from aoclsparse_tpu import MatrixDescriptor, Operation
+from aoclsparse_tpu import AoclSparseError, MatrixDescriptor, Operation, Status
 from aoclsparse_tpu.core.types import FillMode, MatrixType
 from aoclsparse_tpu.planner.plan import get_plan
 
 GEN = MatrixDescriptor()
+BWD_KID = 5
+BWDG_MM_KID = 3
 
 
 def _band(rng, m, half, per_row=5, outliers=0):
@@ -33,10 +35,10 @@ def test_bandt_parity(rng):
     m = 600
     A, dense = _band(rng, m, 7)
     x = rng.standard_normal(m)
-    y = np.asarray(ast.mv(1.5, A, GEN, Operation.none, x, 0.0, kid=8))
+    y = np.asarray(ast.mv(1.5, A, GEN, Operation.none, x, 0.0, kid=BWD_KID))
     np.testing.assert_allclose(y, 1.5 * dense @ x, atol=1e-10)
-    form = get_plan(A).exec_form_for(GEN, Operation.none, kind="bandt")
-    assert form.kind == "bandt" and form.bwd_W <= 16
+    form = get_plan(A).exec_form_for(GEN, Operation.none, kind="bwd")
+    assert form.kind == "bwd" and form.bwd_W <= 32
 
 
 def test_bandt_transpose_and_beta(rng):
@@ -44,7 +46,9 @@ def test_bandt_transpose_and_beta(rng):
     A, dense = _band(rng, m, 5)
     x = rng.standard_normal(m)
     y0 = rng.standard_normal(m)
-    y = np.asarray(ast.mv(2.0, A, GEN, Operation.transpose, x, -1.0, y=y0.copy(), kid=8))
+    y = np.asarray(
+        ast.mv(2.0, A, GEN, Operation.transpose, x, -1.0, y=y0.copy(), kid=BWD_KID)
+    )
     np.testing.assert_allclose(y, 2.0 * dense.T @ x - y0, atol=1e-10)
 
 
@@ -52,11 +56,11 @@ def test_bandt_peel_spill(rng):
     # >4096 nnz triggers the percentile peel; outliers go to the spill
     m = 8192
     A, dense = _band(rng, m, 5, per_row=3, outliers=40)
-    form = get_plan(A).exec_form_for(GEN, Operation.none, kind="bandt")
+    form = get_plan(A).exec_form_for(GEN, Operation.none, kind="bwd")
     assert form.sp_ind is not None and int(form.sp_ind.shape[0]) >= 1
-    assert form.bwd_W <= 24
+    assert form.bwd_W <= 32
     x = rng.standard_normal(m)
-    y = np.asarray(ast.mv(1.0, A, GEN, Operation.none, x, 0.0, kid=8))
+    y = np.asarray(ast.mv(1.0, A, GEN, Operation.none, x, 0.0, kid=BWD_KID))
     np.testing.assert_allclose(y, dense @ x, atol=1e-10)
 
 
@@ -64,162 +68,99 @@ def test_bandt_update_values(rng):
     m = 400
     A, dense = _band(rng, m, 6)
     x = rng.standard_normal(m)
-    _ = ast.mv(1.0, A, GEN, Operation.none, x, 0.0, kid=8)
+    _ = ast.mv(1.0, A, GEN, Operation.none, x, 0.0, kid=BWD_KID)
     v2 = rng.standard_normal(A.nnz)
     ast.update_values(A, v2)
     d2 = np.zeros((m, m))
     d2[
         np.repeat(np.arange(m), np.diff(np.asarray(A.data.ptr))), np.asarray(A.data.ind)
     ] = v2
-    y = np.asarray(ast.mv(1.0, A, GEN, Operation.none, x, 0.0, kid=8))
+    y = np.asarray(ast.mv(1.0, A, GEN, Operation.none, x, 0.0, kid=BWD_KID))
     np.testing.assert_allclose(y, d2 @ x, atol=1e-10)
 
 
 def test_pallas_spmm_band_interpret(rng):
-    from aoclsparse_tpu.kernels.pallas.spmv import pallas_spmm_band_t
-    import jax.numpy as jnp
-
-    m, W, lo, K = 300, 16, -8, 128
-    dense = np.zeros((m, m), np.float32)
-    v = np.zeros((m, W), np.float32)
-    for i in range(m):
-        for j in range(W):
-            c = i + lo + j
-            if 0 <= c < m and rng.random() < 0.5:
-                x = rng.standard_normal()
-                dense[i, c] = x
-                v[i, j] = x
+    """Group-band SpMM (mm KID 3) on a band operand, f32 at 128 columns."""
+    m, K = 300, 128
+    A, dense = _band(rng, m, 8)
     B = rng.standard_normal((m, K)).astype(np.float32)
-    Be = np.concatenate(
-        [np.zeros((-lo, K), np.float32), B, np.zeros((W, K), np.float32)]
-    )
-    C = np.asarray(
-        pallas_spmm_band_t(jnp.asarray(v), jnp.asarray(Be), W, 0, TM=64, interpret=True)
-    )
-    np.testing.assert_allclose(C, dense @ B, atol=1e-3)
+    _, _, _, ptr, ind, val = ast.export_csr(A)
+    Af = ast.create_csr(m, m, ptr, ind, np.asarray(val, np.float32))
+    C = np.asarray(ast.mm(1.0, Af, GEN, Operation.none, B, 0.0, kid=BWDG_MM_KID))
+    np.testing.assert_allclose(C, dense.astype(np.float32) @ B, atol=1e-3)
 
 
-def test_bandtm_mm_dispatch(rng, monkeypatch):
-    # mm() routes band matrices through the Pallas bandtm form when Pallas
-    # is available (interpret on CPU), including the peel spill
-    monkeypatch.setenv("AOCLSPARSE_TPU_FORCE_PALLAS", "1")
-    from aoclsparse_tpu.core.context import reset_context
-
-    reset_context()
-    try:
-        m, K = 8192, 128
-        A, dense = _band(rng, m, 5, per_row=3, outliers=30)
-        B = rng.standard_normal((m, K))
-        C = np.asarray(ast.mm(2.0, A, GEN, Operation.none, B, 0.0))
-        form = get_plan(A).exec_form_for(GEN, Operation.none, kind="bandtm")
-        assert form.kind == "bandtm"
-        assert form.sp_ind is not None and int(form.sp_ind.shape[0]) >= 1
-        np.testing.assert_allclose(C, 2.0 * dense @ B, atol=1e-9)
-    finally:
-        monkeypatch.delenv("AOCLSPARSE_TPU_FORCE_PALLAS", raising=False)
-        reset_context()
+def test_bandtm_mm_dispatch(rng):
+    # mm() keeps band matrices on the gather forms by default, including
+    # rows carrying outliers
+    m, K = 8192, 128
+    A, dense = _band(rng, m, 5, per_row=3, outliers=30)
+    B = rng.standard_normal((m, K))
+    C = np.asarray(ast.mm(2.0, A, GEN, Operation.none, B, 0.0))
+    form = get_plan(A).exec_form_for(GEN, Operation.none)
+    assert form.kind in ("ell", "ellhyb", "segsum")
+    np.testing.assert_allclose(C, 2.0 * dense @ B, atol=1e-9)
 
 
 def test_bandmxu_kid5_dispatch(rng, monkeypatch):
-    """mm KID 5 (MXU block-window band SpMM) through the full dispatch:
-    parity with the bandtm default (incl. spill), non-128-multiple RHS
-    width, mixed-precision blocks, refresh, and the W <= 129 gate."""
-    monkeypatch.setenv("AOCLSPARSE_TPU_FORCE_PALLAS", "1")
-    from aoclsparse_tpu.core.context import reset_context
-
-    reset_context()
-    try:
-        m = 4096
-        A, dense = _band(rng, m, 5, per_row=3, outliers=20)
-        for K in (128, 72):
-            B = rng.standard_normal((m, K)).astype(np.float32)
-            C5 = np.asarray(ast.mm(1.0, A, GEN, Operation.none, B, 0.0, kid=5))
-            np.testing.assert_allclose(C5, dense @ B, atol=1e-3)
-        # mixed precision blocks
-        monkeypatch.setenv("AOCLSPARSE_TPU_MIXED_PRECISION", "1")
-        B = rng.standard_normal((m, 128)).astype(np.float32)
-        C5m = np.asarray(ast.mm(1.0, A, GEN, Operation.none, B, 0.0, kid=5))
-        ref = dense @ B
-        assert np.max(np.abs(C5m - ref)) / np.max(np.abs(ref)) < 2e-2
-        monkeypatch.delenv("AOCLSPARSE_TPU_MIXED_PRECISION")
-        # refresh flows into the cached window blocks
-        _, _, _, ptr_e, ind_e, val_e = ast.export_csr(A)
-        ast.update_values(A, np.asarray(val_e) * 3.0)
-        C5r = np.asarray(ast.mm(1.0, A, GEN, Operation.none, B, 0.0, kid=5))
-        np.testing.assert_allclose(C5r, 3.0 * ref, atol=1e-2)
-        # W > 129 must surface invalid_kid (the 256-wide block can't cover it)
-        from aoclsparse_tpu import AoclSparseError, Status
-
-        Aw, _ = _band(rng, 2048, 120, per_row=8)
-        form = get_plan(Aw).exec_form_for(GEN, Operation.none, kind="bandtm")
-        if form.bwd_W > 129:
-            B2 = rng.standard_normal((2048, 128)).astype(np.float32)
-            try:
-                ast.mm(1.0, Aw, GEN, Operation.none, B2, 0.0, kid=5)
-                raise AssertionError("expected invalid_kid for W > 129")
-            except AoclSparseError as e:
-                assert e.status == Status.invalid_kid
-    finally:
-        monkeypatch.delenv("AOCLSPARSE_TPU_FORCE_PALLAS", raising=False)
-        reset_context()
+    """mm KID 3 (group-band scan) through the full dispatch: parity
+    including spill rows, a non-128-multiple RHS width, mixed precision and
+    refresh."""
+    m = 4096
+    A, dense = _band(rng, m, 5, per_row=3, outliers=20)
+    for K in (128, 72):
+        B = rng.standard_normal((m, K)).astype(np.float32)
+        C3 = np.asarray(ast.mm(1.0, A, GEN, Operation.none, B, 0.0, kid=BWDG_MM_KID))
+        np.testing.assert_allclose(C3, dense @ B, atol=1e-3)
+    _, _, _, ptr_e, ind_e, val_e = ast.export_csr(A)
+    Af = ast.create_csr(m, m, ptr_e, ind_e, np.asarray(val_e, np.float32))
+    monkeypatch.setenv("AOCLSPARSE_TPU_MIXED_PRECISION", "1")
+    B = rng.standard_normal((m, 128)).astype(np.float32)
+    C3m = np.asarray(ast.mm(1.0, Af, GEN, Operation.none, B, 0.0, kid=BWDG_MM_KID))
+    ref = dense @ B
+    assert np.max(np.abs(C3m - ref)) / np.max(np.abs(ref)) < 2e-2
+    monkeypatch.delenv("AOCLSPARSE_TPU_MIXED_PRECISION")
+    ast.update_values(A, np.asarray(val_e) * 3.0)
+    C3r = np.asarray(ast.mm(1.0, A, GEN, Operation.none, B, 0.0, kid=BWDG_MM_KID))
+    np.testing.assert_allclose(C3r, 3.0 * ref, atol=1e-2)
 
 
-def test_autotune_mm_includes_bandmxu(rng, monkeypatch):
-    """autotune_mm times the KID-5 MXU twin as its own label and mm honors
-    a 'bandmxu' pin."""
-    monkeypatch.setenv("AOCLSPARSE_TPU_FORCE_PALLAS", "1")
-    from aoclsparse_tpu.core.context import reset_context
+def test_autotune_mm_includes_bandmxu(rng):
+    """autotune_mm times only forms with an mm kernel row and mm honors a
+    pin to one of them."""
+    from aoclsparse_tpu.kernels.autotune import autotune_mm
 
-    reset_context()
-    try:
-        from aoclsparse_tpu.kernels.autotune import autotune_mm
-
-        m = 2048
-        A, dense = _band(rng, m, 4, per_row=3)
-        res = autotune_mm(A, k=128, iters=1, chunks=1)
-        assert "bandmxu" in res and "bandtm" in res
-        # force the pin to bandmxu and check mm still matches the oracle
-        plan = get_plan(A)
-        key = next(iter(plan._mm_tuned))
-        plan._mm_tuned[key] = "bandmxu"
-        B = rng.standard_normal((m, 128)).astype(np.float32)
-        C = np.asarray(ast.mm(1.0, A, GEN, Operation.none, B, 0.0))
-        np.testing.assert_allclose(C, dense @ B, atol=1e-3)
-    finally:
-        monkeypatch.delenv("AOCLSPARSE_TPU_FORCE_PALLAS", raising=False)
-        reset_context()
+    m = 2048
+    A, dense = _band(rng, m, 4, per_row=3)
+    res = autotune_mm(A, k=128, iters=1, chunks=1)
+    assert "bwdg" in res and "ell" in res
+    assert set(res) <= {"diag", "bwdg", "ell", "ellhyb", "segsum"}
+    plan = get_plan(A)
+    key = next(iter(plan._mm_tuned))
+    plan._mm_tuned[key] = "bwdg"
+    B = rng.standard_normal((m, 128)).astype(np.float32)
+    C = np.asarray(ast.mm(1.0, A, GEN, Operation.none, B, 0.0))
+    np.testing.assert_allclose(C, dense @ B, atol=1e-3)
 
 
-def test_pallas_trsv_routing(rng, monkeypatch):
-    # single-RHS trsv routes through the Pallas sequential-grid solve when
-    # Pallas is available (interpret on CPU): parity on both triangles and
-    # after update_values (the transposed operand cache must invalidate)
-    monkeypatch.setenv("AOCLSPARSE_TPU_FORCE_PALLAS", "1")
-    from aoclsparse_tpu.core.context import reset_context
-    from aoclsparse_tpu.core.types import DiagType
-
-    reset_context()
-    try:
-        m = 1100  # non-multiple of 8*nb: exercises block padding
-        dense = np.tril(rng.standard_normal((m, m)).astype(np.float32)) * (
-            np.abs(rng.standard_normal((m, m))) < 0.02
-        )
-        np.fill_diagonal(dense, 5.0)
-        ptr = np.concatenate([[0], np.cumsum((dense != 0).sum(1))]).astype(np.int64)
-        A = ast.create_csr(
-            m, m, ptr, np.nonzero(dense)[1].astype(np.int32), dense[dense != 0]
-        )
-        tri = MatrixDescriptor(type=MatrixType.triangular, fill_mode=FillMode.lower)
-        b = rng.standard_normal(m).astype(np.float32)
-        x = np.asarray(ast.trsv(1.0, A, tri, Operation.none, b))
-        assert np.abs(dense @ x - b).max() < 1e-3
-        v2 = (dense[dense != 0] * 1.5).astype(np.float32)
-        ast.update_values(A, v2)
-        x2 = np.asarray(ast.trsv(1.0, A, tri, Operation.none, b))
-        assert np.abs(1.5 * dense @ x2 - b).max() < 1e-3
-    finally:
-        monkeypatch.delenv("AOCLSPARSE_TPU_FORCE_PALLAS", raising=False)
-        reset_context()
+def test_pallas_trsv_routing(rng):
+    # single-RHS trsv runs the blocked scan: parity on a padded block count
+    # and after update_values (the cached form must refresh)
+    m = 1100  # non-multiple of the block: exercises block padding
+    dense = np.tril(rng.standard_normal((m, m)).astype(np.float32)) * (
+        np.abs(rng.standard_normal((m, m))) < 0.02
+    )
+    np.fill_diagonal(dense, 5.0)
+    ptr = np.concatenate([[0], np.cumsum((dense != 0).sum(1))]).astype(np.int64)
+    A = ast.create_csr(m, m, ptr, np.nonzero(dense)[1].astype(np.int32), dense[dense != 0])
+    tri = MatrixDescriptor(type=MatrixType.triangular, fill_mode=FillMode.lower)
+    b = rng.standard_normal(m).astype(np.float32)
+    x = np.asarray(ast.trsv(1.0, A, tri, Operation.none, b))
+    assert np.abs(dense @ x - b).max() < 1e-3
+    v2 = (dense[dense != 0] * 1.5).astype(np.float32)
+    ast.update_values(A, v2)
+    x2 = np.asarray(ast.trsv(1.0, A, tri, Operation.none, b))
+    assert np.abs(1.5 * dense @ x2 - b).max() < 1e-3
 
 
 def test_bandt_symmetric_descriptor(rng):
@@ -230,202 +171,87 @@ def test_bandt_symmetric_descriptor(rng):
     Au = ast.create_csr(m, m, ptr, np.nonzero(up)[1].astype(np.int32), up[up != 0])
     sym = MatrixDescriptor(type=MatrixType.symmetric, fill_mode=FillMode.upper)
     x = rng.standard_normal(m)
-    y = np.asarray(ast.mv(1.0, Au, sym, Operation.none, x, 0.0, kid=8))
+    y = np.asarray(ast.mv(1.0, Au, sym, Operation.none, x, 0.0, kid=BWD_KID))
     full = np.triu(up) + np.triu(up, 1).T
     np.testing.assert_allclose(y, full @ x, atol=1e-10)
 
 
-def test_pallas_routes_reject_complex_dtype(rng, monkeypatch):
-    """Mosaic compiles only f32/bf16 on this stack: on a (simulated) TPU
-    context with Pallas on, a complex banded matrix must keep the XLA
-    bwd form (a bandt selection would fail the TPU compile at dispatch)."""
-    import dataclasses
-
-    import aoclsparse_tpu.core.context as ctx_mod
-    from aoclsparse_tpu.core.context import reset_context
-    from aoclsparse_tpu.planner.plan import choose_mv_format
-
-    reset_context()
-    ctx_mod._ctx = dataclasses.replace(
-        ctx_mod.get_context(), platform="tpu", pallas_ok=True
-    )
-    try:
-        m = 8192
-        # wide scattered band: many distinct diagonals, so diag loses and
-        # the band-window forms win the cost model
-        A, dense = _band(rng, m, 64, per_row=48, outliers=0)
-        _, _, _, ptr, ind, fval = ast.export_csr(A)
-        zval = np.asarray(fval).astype(np.complex64) * (1 + 1j)
-        Az = ast.create_csr(m, m, ptr, ind, zval)
-        eff = get_plan(Az).effective_for(GEN, Operation.none, Az.dtype)
-        kind_z = choose_mv_format(eff, hint_nop=1000)
-        # the same matrix in f32 takes bandt on the simulated TPU context
-        Af = ast.create_csr(m, m, ptr, ind, np.asarray(zval.real, np.float32))
-        eff_f = get_plan(Af).effective_for(GEN, Operation.none, Af.dtype)
-        assert choose_mv_format(eff_f, hint_nop=1000) == "bandt"
-        assert kind_z != "bandt", "complex operand must not take the Pallas route"
-    finally:
-        reset_context()
+def test_pallas_routes_reject_complex_dtype(rng):
+    """The band form serves complex operands exactly like real ones."""
+    m = 1024
+    A, dense = _band(rng, m, 16, per_row=6)
+    _, _, _, ptr, ind, fval = ast.export_csr(A)
+    zval = np.asarray(fval).astype(np.complex128) * (1 + 1j)
+    Az = ast.create_csr(m, m, ptr, ind, zval)
+    x = rng.standard_normal(m) + 1j * rng.standard_normal(m)
+    y = np.asarray(ast.mv(1.0, Az, GEN, Operation.none, x, 0.0, kid=BWD_KID))
+    np.testing.assert_allclose(y, (dense * (1 + 1j)) @ x, atol=1e-9)
 
 
-def test_bandtm_wide_rhs_falls_back_to_bwdg(rng, monkeypatch):
-    """RHS wider than BANDTM_MAX_K must take the bwdg scan (the bandtm
-    kernel's 9 VMEM window copies would blow the budget at large K)."""
-    monkeypatch.setenv("AOCLSPARSE_TPU_FORCE_PALLAS", "1")
-    from aoclsparse_tpu.core.context import reset_context
-
-    reset_context()
-    try:
-        m = 8192
-        A, dense = _band(rng, m, 5, per_row=3, outliers=0)
-        K = 512  # > BANDTM_MAX_K=384, still a 128 multiple
-        B = rng.standard_normal((m, K)).astype(np.float32)
-        C = np.asarray(ast.mm(1.0, A, GEN, Operation.none, B, 0.0))
-        np.testing.assert_allclose(C, dense @ B, rtol=2e-3, atol=2e-3)
-        plan = get_plan(A)
-        # the narrow-K case still routes bandtm; wide K must not have
-        # created a bandtm form implicitly
-        assert not any(
-            f.kind == "bandtm" and getattr(f, "_last_K", None) == K
-            for f in getattr(plan, "exec_forms", {}).values()
-            if hasattr(f, "kind")
-        )
-    finally:
-        monkeypatch.delenv("AOCLSPARSE_TPU_FORCE_PALLAS", raising=False)
-        reset_context()
-
-
-def _band_ref_y(vt, x, lo):
-    """y[i] = sum_j vt[j, i] * x[i + lo + j] (entries out of range skipped)."""
-    W, m = vt.shape
-    y = np.zeros(m, np.float64)
-    for j in range(W):
-        idx = np.arange(m) + lo + j
-        ok = (idx >= 0) & (idx < x.size)
-        y[ok] += vt[j, ok].astype(np.float64) * x[idx[ok]]
-    return y
-
-
-def test_pallas_band_v_variants(rng):
-    """Vertical-layout band kernel (round-3): the band is pre-transformed
-    to the output's (8, TM/8) sublane distribution so every j is a
-    full-tile FMA (no reduction/relayout; the v2 kernel's (1, TM) chain
-    uses 1/8 of the VPU). f32 matches the v2 kernel; bf16 (per-pair
-    whole-tile upcast) matches to bf16 precision; the start-remainder
-    roll path and ragged m are exercised."""
-    import jax.numpy as jnp
-
-    from aoclsparse_tpu.kernels.pallas.spmv import (
-        band_vert_layout,
-        pallas_spmv_band_t,
-        pallas_spmv_band_v,
-    )
-
-    m, W, lo, TM = 700, 32, -16, 128
-    vt = rng.standard_normal((W, m)).astype(np.float32)
-    x = rng.standard_normal(m).astype(np.float32)
-    y_ref = _band_ref_y(vt, x, lo)
-    xe = jnp.asarray(np.pad(x, (-lo, 0)))
-    vt4 = jnp.asarray(band_vert_layout(vt, TM))
-    y8 = np.asarray(pallas_spmv_band_v(vt4, xe, W, 0, TM=TM, interpret=True))[:m]
-    np.testing.assert_allclose(y8, y_ref, atol=1e-4)
-    vt4b = jnp.asarray(band_vert_layout(vt.astype(jnp.bfloat16), TM))
-    y16 = np.asarray(pallas_spmv_band_v(vt4b, xe, W, 0, TM=TM, interpret=True))[:m]
-    assert np.max(np.abs(y16 - y_ref)) / np.max(np.abs(y_ref)) < 2e-2
-    # start remainder (rolls xe): parity vs the v2 kernel on the same inputs
-    start = 24
-    xe2 = jnp.asarray(np.pad(x, (0, W + start)))
-    ya = np.asarray(pallas_spmv_band_t(jnp.asarray(vt), xe2, W, start, TM=TM, interpret=True))
-    yb = np.asarray(pallas_spmv_band_v(vt4, xe2, W, start, TM=TM, interpret=True))[:m]
-    np.testing.assert_allclose(yb, ya, atol=1e-4)
-
-
-def test_bandv_kid12_dispatch(rng, monkeypatch):
-    """mv KID 12 (vertical-layout band kernel) through the full library
-    dispatch: parity with KID 8, peel spill, mixed-precision band, and
-    update_values refresh (the cached vertical layout must drop)."""
+def test_bandtm_wide_rhs_falls_back_to_bwdg(rng):
+    """A wide RHS (K=512) on the group-band SpMM matches the oracle."""
     m = 8192
-    A, dense = _band(rng, m, 5, per_row=3, outliers=40)
-    x = rng.standard_normal(m)
-    y8 = np.asarray(ast.mv(1.0, A, GEN, Operation.none, x, 0.0, kid=8))
-    y12 = np.asarray(ast.mv(1.0, A, GEN, Operation.none, x, 0.0, kid=12))
-    np.testing.assert_allclose(y12, y8, atol=1e-10)
-    np.testing.assert_allclose(y12, dense @ x, atol=1e-10)
-    # mixed precision: bf16 band multiply under the documented policy
-    monkeypatch.setenv("AOCLSPARSE_TPU_MIXED_PRECISION", "1")
-    xf = x.astype(np.float32)
-    y12m = np.asarray(ast.mv(1.0, A, GEN, Operation.none, xf, 0.0, kid=12))
-    ref = dense @ x
-    assert np.max(np.abs(y12m - ref)) / np.max(np.abs(ref)) < 2e-2
-    monkeypatch.delenv("AOCLSPARSE_TPU_MIXED_PRECISION")
-    # refresh: scaled values must invalidate the cached vertical band
-    _, _, _, ptr_e, ind_e, val_e = ast.export_csr(A)
-    ast.update_values(A, np.asarray(val_e) * 2.0)
-    y12r = np.asarray(ast.mv(1.0, A, GEN, Operation.none, x, 0.0, kid=12))
-    np.testing.assert_allclose(y12r, 2.0 * ref, atol=1e-9)
+    A, dense = _band(rng, m, 5, per_row=3, outliers=0)
+    K = 512
+    B = rng.standard_normal((m, K)).astype(np.float32)
+    C = np.asarray(ast.mm(1.0, A, GEN, Operation.none, B, 0.0, kid=BWDG_MM_KID))
+    np.testing.assert_allclose(C, dense @ B, rtol=2e-3, atol=2e-3)
 
 
-def test_pallas_band_mxu(rng):
-    """MXU block-window band kernel (round-3): host block builder +
-    kernel parity vs the band oracle, f32 and bf16, W up to 129."""
-    import jax.numpy as jnp
-
-    from aoclsparse_tpu.kernels.pallas.spmv import (
-        band_mxu_blocks,
-        pallas_spmv_band_mxu,
-    )
-
-    m, lo = 640, -16
+def test_pallas_band_v_variants(rng, monkeypatch):
+    """Mixed precision on the band SpMV: bf16 multiply / f32 accumulate
+    stays within the bf16 bound; full precision stays at f32 parity."""
+    m = 2048
+    A, dense = _band(rng, m, 12, per_row=6)
+    _, _, _, ptr, ind, val = ast.export_csr(A)
+    Af = ast.create_csr(m, m, ptr, ind, np.asarray(val, np.float32))
     x = rng.standard_normal(m).astype(np.float32)
-    for W in (32, 129):
-        vt = rng.standard_normal((W, m)).astype(np.float32)
-        y_ref = _band_ref_y(vt, x, lo)
-        xe = jnp.asarray(np.pad(x, (-lo, 0)))
-        dt = band_mxu_blocks(vt, W)
-        assert dt.shape == (m // 128, 256, 128)
-        y = np.asarray(pallas_spmv_band_mxu(jnp.asarray(dt), xe, 0, TM=256, interpret=True))
-        np.testing.assert_allclose(y, y_ref, atol=1e-3)
-        y16 = np.asarray(
-            pallas_spmv_band_mxu(
-                jnp.asarray(dt, jnp.bfloat16), xe, 0, TM=256, interpret=True
-            )
-        )
-        assert np.max(np.abs(y16 - y_ref)) / np.max(np.abs(y_ref)) < 2e-2
+    ref = dense @ x
+    y = np.asarray(ast.mv(1.0, Af, GEN, Operation.none, x, 0.0, kid=BWD_KID))
+    np.testing.assert_allclose(y, ref, rtol=1e-4, atol=1e-4)
+    monkeypatch.setenv("AOCLSPARSE_TPU_MIXED_PRECISION", "1")
+    ym = np.asarray(ast.mv(1.0, Af, GEN, Operation.none, x, 0.0, kid=BWD_KID))
+    assert np.max(np.abs(ym - ref)) / np.max(np.abs(ref)) < 2e-2
 
 
-def test_pallas_trsm_multi_rhs(rng, monkeypatch):
-    """Multi-RHS sequential-grid solve (pallas_trsm_win_inv): trsm routes
-    through it under Pallas, matches the solve oracle, keeps values
-    refreshable, and odd K (lane padding) works."""
-    monkeypatch.setenv("AOCLSPARSE_TPU_FORCE_PALLAS", "1")
-    from aoclsparse_tpu.core.context import reset_context
-    from aoclsparse_tpu.core.types import MatrixType
+@pytest.mark.parametrize("kid", [8, 12, 13, 14])
+def test_bandv_kid12_dispatch(rng, kid):
+    """KIDs of the removed band kernels raise invalid_kid through mv."""
+    A, _ = _band(rng, 256, 4)
+    x = rng.standard_normal(256)
+    with pytest.raises(AoclSparseError) as e:
+        ast.mv(1.0, A, GEN, Operation.none, x, 0.0, kid=kid)
+    assert e.value.status == Status.invalid_kid
 
-    reset_context()
-    try:
-        m = 2048
-        dense = np.tril(
-            rng.standard_normal((m, m)) * (rng.random((m, m)) < 0.01), -1
-        ) + np.diag(4 + rng.random(m))
-        mask = dense != 0
-        ptr = np.concatenate([[0], np.cumsum(mask.sum(1))])
-        ind = np.nonzero(mask)[1]
-        val = dense[mask].astype(np.float32)
-        A = ast.create_csr(m, m, ptr, ind, val)
-        low = MatrixDescriptor().with_(type=MatrixType.triangular)
-        for k in (3, 8, 17):
-            B = rng.standard_normal((m, k)).astype(np.float32)
-            X = np.asarray(ast.trsm(2.0, A, low, Operation.none, B))
-            np.testing.assert_allclose(
-                X, np.linalg.solve(dense, 2.0 * B), rtol=5e-4, atol=5e-4
-            )
-        # refresh: scaled values must flow into the cached Pallas operands
-        ast.update_values(A, val * 2)
-        B = rng.standard_normal((m, 5)).astype(np.float32)
-        X2 = np.asarray(ast.trsm(1.0, A, low, Operation.none, B))
-        np.testing.assert_allclose(
-            X2, np.linalg.solve(2 * dense, B), rtol=5e-4, atol=5e-4
-        )
-    finally:
-        monkeypatch.delenv("AOCLSPARSE_TPU_FORCE_PALLAS", raising=False)
-        reset_context()
+
+@pytest.mark.parametrize("kid", [4, 5, 6])
+def test_pallas_band_mxu(rng, kid):
+    """KIDs of the removed band SpMM kernels raise invalid_kid through mm."""
+    A, _ = _band(rng, 256, 4)
+    B = rng.standard_normal((256, 8))
+    with pytest.raises(AoclSparseError) as e:
+        ast.mm(1.0, A, GEN, Operation.none, B, 0.0, kid=kid)
+    assert e.value.status == Status.invalid_kid
+
+
+def test_pallas_trsm_multi_rhs(rng):
+    """Multi-RHS solve (trsm) on the blocked scan: oracle parity for odd
+    and even K and after update_values."""
+    m = 2048
+    dense = np.tril(
+        rng.standard_normal((m, m)) * (rng.random((m, m)) < 0.01), -1
+    ) + np.diag(4 + rng.random(m))
+    mask = dense != 0
+    ptr = np.concatenate([[0], np.cumsum(mask.sum(1))])
+    ind = np.nonzero(mask)[1]
+    val = dense[mask].astype(np.float32)
+    A = ast.create_csr(m, m, ptr, ind, val)
+    low = MatrixDescriptor().with_(type=MatrixType.triangular)
+    for k in (3, 8, 17):
+        B = rng.standard_normal((m, k)).astype(np.float32)
+        X = np.asarray(ast.trsm(2.0, A, low, Operation.none, B))
+        np.testing.assert_allclose(X, np.linalg.solve(dense, 2.0 * B), rtol=5e-4, atol=5e-4)
+    ast.update_values(A, val * 2)
+    B = rng.standard_normal((m, 5)).astype(np.float32)
+    X2 = np.asarray(ast.trsm(1.0, A, low, Operation.none, B))
+    np.testing.assert_allclose(X2, np.linalg.solve(2 * dense, B), rtol=5e-4, atol=5e-4)

@@ -1,13 +1,11 @@
-"""Double-float (two-f32) band SpMV — mv KID 13 (kernels/pallas/spmv.py
-spmv_bandv_df). The TPU-native answer to the reference's double-precision
-benchmark methodology (csrmv.sh:88-92 runs doubles): f64-class accuracy from
-paired f32 arithmetic at VPU f32 rates.
+"""Double-precision band SpMV: the XLA banded-window form (mv KID 5) in
+native float64, the reference's benchmark precision (csrmv.sh:88-92 runs
+doubles). The removed double-float kernel (KID 13) raises invalid_kid.
 
-Accuracy model (docs/precision.md): ~2^-48 relative per element — far below
-f32's 2^-24 and comfortably inside the reference's own f64 test tolerance
-(expected_precision = scale*sqrt(2*eps_f64) ~ 2.1e-8*scale,
-aoclsparse_utils.hpp:493-498). These tests pin both: the df64 error must
-beat f32 by orders of magnitude AND land within ~1e-11 relative.
+Accuracy model: f64 working precision — far below f32's 2^-24 and inside the
+reference's own f64 test tolerance (expected_precision = scale*sqrt(2*eps_f64)
+~ 2.1e-8*scale, aoclsparse_utils.hpp:493-498). These tests pin both: the f64
+error must beat f32 by orders of magnitude AND land within ~1e-11 relative.
 """
 
 import numpy as np
@@ -60,7 +58,7 @@ def test_df64_band_accuracy(rng):
     A, dense = _band_csr(rng, m=512, half_bw=10, row_nnz=8)
     x = rng.standard_normal(512) * (1.0 + 1e-10 * rng.standard_normal(512))
     want = dense @ x
-    got_df = ast.mv(1.0, A, GEN, Operation.none, x, 0.0, None, kid=13)
+    got_df = ast.mv(1.0, A, GEN, Operation.none, x, 0.0, None, kid=5)
     assert np.asarray(got_df).dtype == np.float64
     err_df = _relerr(got_df, want)
     # f32 comparator: same product at f32 working precision
@@ -75,16 +73,16 @@ def test_df64_needs_float64_operand(rng):
     x = rng.standard_normal(128).astype(np.float32)
     with pytest.raises(AoclSparseError) as e:
         ast.mv(1.0, A, GEN, Operation.none, x, 0.0, None, kid=13)
-    assert e.value.status == Status.invalid_kid
+    assert e.value.status == Status.invalid_kid  # removed kernel
 
 
 def test_df64_spill_path(rng):
-    # outliers force the planner's peel spill; the df64 path handles the
-    # native-f64 spill segment-sum alongside the paired-f32 band
+    # outliers force the planner's peel spill: f64 spill segment-sum
+    # alongside the f64 band
     A, dense = _band_csr(rng, m=1024, half_bw=8, row_nnz=6, outliers=5)
     x = rng.standard_normal(1024)
     want = dense @ x
-    got = ast.mv(1.0, A, GEN, Operation.none, x, 0.0, None, kid=13)
+    got = ast.mv(1.0, A, GEN, Operation.none, x, 0.0, None, kid=5)
     assert _relerr(got, want) < 1e-11
 
 
@@ -92,7 +90,7 @@ def test_df64_alpha_beta_epilogue(rng):
     A, dense = _band_csr(rng, m=256, half_bw=6, row_nnz=4)
     x = rng.standard_normal(256)
     y = rng.standard_normal(256)
-    got = ast.mv(1.25, A, GEN, Operation.none, x, -0.5, y, kid=13)
+    got = ast.mv(1.25, A, GEN, Operation.none, x, -0.5, y, kid=5)
     want = 1.25 * (dense @ x) - 0.5 * y
     assert _relerr(got, want) < 1e-11
 
@@ -100,35 +98,34 @@ def test_df64_alpha_beta_epilogue(rng):
 def test_df64_update_values_refresh(rng):
     A, dense = _band_csr(rng, m=256, half_bw=6, row_nnz=4)
     x = rng.standard_normal(256)
-    y1 = np.asarray(ast.mv(1.0, A, GEN, Operation.none, x, 0.0, None, kid=13))
-    # bulk value replacement must flow through the cached split-band pair
+    y1 = np.asarray(ast.mv(1.0, A, GEN, Operation.none, x, 0.0, None, kid=5))
+    # bulk value replacement must flow through the cached band
     m, n, nnz, ptr, ind, val = ast.export_csr(A)
     new_val = val * 3.0 + 1e-9
     ast.update_values(A, new_val)
     dense2 = np.zeros_like(dense)
     dense2[np.repeat(np.arange(m), np.diff(ptr)), ind] = new_val
-    y2 = np.asarray(ast.mv(1.0, A, GEN, Operation.none, x, 0.0, None, kid=13))
+    y2 = np.asarray(ast.mv(1.0, A, GEN, Operation.none, x, 0.0, None, kid=5))
     assert _relerr(y2, dense2 @ x) < 1e-11
     assert not np.allclose(y1, y2)
 
 
 def test_df64_autoroute_on_f64_bandt_pin(rng):
-    # autotune_mv pinning the bandt form on an f64 matrix must route the
-    # default (kid=None) dispatch through the double-float kernel — KID 12's
-    # f32 kernel would silently drop mantissa bits
+    # autotune_mv pinning the band form on an f64 matrix routes the default
+    # (kid=None) dispatch through it at full f64 accuracy
     from aoclsparse_tpu.kernels.autotune import autotune_mv
 
     A, dense = _band_csr(rng, m=256, half_bw=6, row_nnz=4)
-    res = autotune_mv(A, iters=1, chunks=1, kinds=("bandt",))
-    assert "bandt" in res
+    res = autotune_mv(A, iters=1, chunks=1, kinds=("bwd",))
+    assert "bwd" in res
     x = rng.standard_normal(256)
     got = ast.mv(1.0, A, GEN, Operation.none, x, 0.0, None)  # default dispatch
     assert _relerr(got, dense @ x) < 1e-11
 
 
 def test_df64_split_exactness():
-    # the (hi, lo) split must reconstruct the f64 band exactly enough that
-    # hi+lo loses only bits below 2^-49 relative
+    # an f64 value split into two f32 halves (hi, lo) reconstructs to
+    # within 2^-45 relative: the precision bound any paired-f32 scheme has
     rng = np.random.default_rng(3)
     v = rng.standard_normal(4096) * np.exp(rng.uniform(-20, 20, 4096))
     vh = v.astype(np.float32).astype(np.float64)

@@ -1,6 +1,6 @@
 """General-sparsity execution form (gen = hub slab + block/element RCM band +
 COO spill; VERDICT.md round-1 item #1). The reference's SpMV is fast on every
-structure via x86 gathers (level2/aoclsparse_csrmv_kt.cpp:31-108); the TPU
+structure via x86 gathers (level2/aoclsparse_csrmv_kt.cpp:31-108); the gen
 form reaches the same coverage by *making* matrices band-compressible. These
 tests pin oracle parity on the structure classes of the reference's matrix
 suite (tests/benchmarks/matrices/matrixlist): circuit-like (hubs + locality),
@@ -129,23 +129,19 @@ def test_gen_rejects_uniform_random_structure(rng):
 
 
 def test_gen_bandt_core_parity(rng, monkeypatch):
-    # with Pallas available the gen composite stores its band part in the
-    # transposed bandt layout and routes through the Pallas kernel
-    # (interpret mode on CPU)
-    monkeypatch.setenv("AOCLSPARSE_TPU_FORCE_PALLAS", "1")
+    # f32 gen composite (mv KID 7) on the circuit profile: parity, refresh
+    # and mixed precision on the band
     from aoclsparse_tpu.core.context import reset_context
 
     reset_context()
     try:
         m = 1024
-        # f32 values: the Pallas route is dtype-gated (Mosaic compiles only
-        # f32/bf16), so the bandt-core assertion needs an f32 operand
         dense = _circuit_like(rng, m).astype(np.float32)
         A = _mk(m, dense)
         x = rng.standard_normal(m).astype(np.float32)
         y = np.asarray(ast.mv(1.0, A, GEN, Operation.none, x, 0.0, kid=7))
         form = get_plan(A).exec_form_for(GEN, Operation.none, kind="gen")
-        assert form.gen_bandt
+        assert form.kind == "gen"
         np.testing.assert_allclose(y, dense.astype(np.float64) @ x, atol=1e-3)
         v2 = rng.standard_normal(A.nnz).astype(np.float32)
         ast.update_values(A, v2)
@@ -154,12 +150,7 @@ def test_gen_bandt_core_parity(rng, monkeypatch):
         d2[np.repeat(np.arange(m), np.diff(ptr)), ind] = v2
         y2 = np.asarray(ast.mv(1.0, A, GEN, Operation.none, x, 0.0, kid=7))
         np.testing.assert_allclose(y2, d2 @ x, atol=1e-3)
-        # env escape hatch pins the v2 transposed-band kernel: same result
-        monkeypatch.setenv("AOCLSPARSE_TPU_GEN_BAND_V2", "1")
-        y8 = np.asarray(ast.mv(1.0, A, GEN, Operation.none, x, 0.0, kid=7))
-        monkeypatch.delenv("AOCLSPARSE_TPU_GEN_BAND_V2")
-        np.testing.assert_allclose(y8, y2, atol=1e-5)
-        # mixed precision rides the bf16 vertical band (web-profile lever)
+        # mixed precision rides the bf16 band
         monkeypatch.setenv("AOCLSPARSE_TPU_MIXED_PRECISION", "1")
         ym = np.asarray(ast.mv(1.0, A, GEN, Operation.none, x, 0.0, kid=7))
         monkeypatch.delenv("AOCLSPARSE_TPU_MIXED_PRECISION")
@@ -167,9 +158,6 @@ def test_gen_bandt_core_parity(rng, monkeypatch):
         scale = max(1e-9, float(np.max(np.abs(ref2))))
         assert np.max(np.abs(ym - ref2)) / scale < 2e-2
     finally:
-        # drop the env BEFORE resetting so later tests re-detect a clean
-        # (pallas-off) CPU context
-        monkeypatch.delenv("AOCLSPARSE_TPU_FORCE_PALLAS", raising=False)
         reset_context()
 
 
@@ -321,12 +309,9 @@ def test_rcm_native_vs_numpy(rng):
 
 
 def test_gen_spmm_parity(rng, monkeypatch):
-    """mm KID 6 (kernels/xla/spmm.py spmm_gen): the gen composite applied
-    to a dense RHS — permuted band on the Pallas row-aligned band-SpMM
-    kernel + hub slabs + spill — must match the dense oracle on the
-    circuit profile (previously general structure fell back to the
-    padded-ELL gather kernel)."""
-    monkeypatch.setenv("AOCLSPARSE_TPU_FORCE_PALLAS", "1")
+    """mm on a circuit-profile operand whose plan holds the gen composite:
+    mm has no gen kernel row (the removed mm KID 6 raises invalid_kid), so
+    the product rides a gather form and must match the dense oracle."""
     from aoclsparse_tpu.core.context import reset_context
 
     reset_context()
@@ -336,21 +321,19 @@ def test_gen_spmm_parity(rng, monkeypatch):
         A = _mk(m, dense)
         B = rng.standard_normal((m, k)).astype(np.float32)
         form = get_plan(A).exec_form_for(GEN, Operation.none, kind="gen")
-        assert form.kind == "gen" and form.gen_bandt
-        C = np.asarray(ast.mm(1.0, A, GEN, Operation.none, B, 0.0, kid=6))
+        assert form.kind == "gen"
+        with pytest.raises(AoclSparseError) as e:
+            ast.mm(1.0, A, GEN, Operation.none, B, 0.0, kid=6)
+        assert e.value.status == Status.invalid_kid
+        C = np.asarray(ast.mm(1.0, A, GEN, Operation.none, B, 0.0))
         np.testing.assert_allclose(
             C, dense.astype(np.float64) @ B, atol=5e-3, rtol=1e-4
         )
-        # the default (no-kid) route must agree; on CPU the cost model may
-        # pick a gather form (gathers are fine off-TPU), on TPU it picks gen
-        C2 = np.asarray(ast.mm(1.0, A, GEN, Operation.none, B, 0.0))
-        np.testing.assert_allclose(C2, C, atol=1e-5)
     finally:
         reset_context()
 
 
 def test_gen_spmm_alpha_beta_and_refresh(rng, monkeypatch):
-    monkeypatch.setenv("AOCLSPARSE_TPU_FORCE_PALLAS", "1")
     from aoclsparse_tpu.core.context import reset_context
 
     reset_context()
@@ -360,13 +343,13 @@ def test_gen_spmm_alpha_beta_and_refresh(rng, monkeypatch):
         A = _mk(m, dense)
         B = rng.standard_normal((m, k)).astype(np.float32)
         C0 = rng.standard_normal((m, k)).astype(np.float32)
-        got = np.asarray(ast.mm(1.5, A, GEN, Operation.none, B, -0.5, C0, kid=6))
+        got = np.asarray(ast.mm(1.5, A, GEN, Operation.none, B, -0.5, C0))
         want = 1.5 * dense.astype(np.float64) @ B - 0.5 * C0
         np.testing.assert_allclose(got, want, atol=5e-3, rtol=1e-4)
-        # update_values flows through the cached row-aligned band
+        # update_values flows through the cached form
         newval = (-2.0 * dense[dense != 0]).astype(np.float32)
         ast.update_values(A, newval)
-        got2 = np.asarray(ast.mm(1.0, A, GEN, Operation.none, B, 0.0, kid=6))
+        got2 = np.asarray(ast.mm(1.0, A, GEN, Operation.none, B, 0.0))
         np.testing.assert_allclose(
             got2, -2.0 * dense.astype(np.float64) @ B, atol=1e-2, rtol=1e-4
         )
@@ -375,10 +358,8 @@ def test_gen_spmm_alpha_beta_and_refresh(rng, monkeypatch):
 
 
 def test_gen_spmm_k_pad_lane_multiple(rng, monkeypatch):
-    """K not a lane multiple is PADDED to 128 and rides the gen engine
-    (r5: the old K%128 gate dropped every K=64 real-matrix product to the
-    gather rebuild — webbase stand-in measured 674 ms); result sliced back
-    to K and matching the oracle."""
+    """A K that is not a multiple of 128 (and a plan holding the gen form)
+    gives a (m, K) product matching the oracle."""
     m = 1024
     dense = _circuit_like(rng, m)
     A = _mk(m, dense)
@@ -386,44 +367,31 @@ def test_gen_spmm_k_pad_lane_multiple(rng, monkeypatch):
     C = np.asarray(ast.mm(1.0, A, GEN, Operation.none, B, 0.0))
     assert C.shape == (m, 40)
     np.testing.assert_allclose(C, dense.astype(np.float32) @ B, atol=5e-3, rtol=1e-4)
-    # explicit KID 6 (gen engine) with unaligned K: padded, not refused
-    monkeypatch.setenv("AOCLSPARSE_TPU_FORCE_PALLAS", "1")
-    from aoclsparse_tpu.core.context import reset_context
-
-    reset_context()
-    try:
-        form = get_plan(A).exec_form_for(GEN, Operation.none, kind="gen")
-        if form.kind == "gen" and form.gen_bandt:
-            C6 = np.asarray(ast.mm(1.0, A, GEN, Operation.none, B, 0.0, kid=6))
-            np.testing.assert_allclose(
-                C6, dense.astype(np.float32) @ B, atol=5e-3, rtol=1e-4
-            )
-    finally:
-        reset_context()
+    form = get_plan(A).exec_form_for(GEN, Operation.none, kind="gen")
+    assert form.kind == "gen"
+    C6 = np.asarray(ast.mm(1.0, A, GEN, Operation.none, B, 0.0))
+    np.testing.assert_allclose(C6, C, atol=1e-6)
 
 
 def test_gen_permuted_space_apply_parity(rng, monkeypatch):
-    """spmv_gen_bandv_p + gen_perm_maps: iterating in permuted space and
-    permuting only at the boundary must reproduce the composite exactly
-    (the per-iteration O(m) permute gathers are hoisted out of solver
-    loops; solvers/fused.py _gen_pspace)."""
-    monkeypatch.setenv("AOCLSPARSE_TPU_FORCE_PALLAS", "1")
+    """mv_operator on an operand pinned to the gen composite: its spaces
+    are the identity and its apply reproduces mv KID 7."""
     from aoclsparse_tpu.core.context import reset_context
 
     reset_context()
     try:
         import jax.numpy as jnp
 
-        from aoclsparse_tpu.solvers.fused import _gen_pspace
+        from aoclsparse_tpu.kernels.autotune import autotune_mv
 
         m = 1024
         dense = _circuit_like(rng, m).astype(np.float32)
         A = _mk(m, dense)
-        form = get_plan(A).exec_form_for(GEN, Operation.none, kind="gen")
-        assert form.gen_bandt
-        ps = _gen_pspace(form)
-        assert ps is not None
-        matvec_p, to_p, from_p = ps
+        autotune_mv(A, iters=1, chunks=1, kinds=("gen",))  # pin gen
+        assert get_plan(A).exec_form_for(GEN, Operation.none).kind == "gen"
+        op = ast.mv_operator(A)
+        assert op.space == "original"
+        matvec_p, to_p, from_p = op.apply, op.to_space, op.from_space
         x = rng.standard_normal(m).astype(np.float32)
         # boundary round-trip is exact
         np.testing.assert_array_equal(
@@ -443,7 +411,6 @@ def test_gen_pcg_permuted_space_iterations(rng, monkeypatch):
     """pcg_solve on a gen-composite SPD operand runs the permuted-space
     loop; solution and iteration count must match the dense solve /
     matrix-free CG on the same operand."""
-    monkeypatch.setenv("AOCLSPARSE_TPU_FORCE_PALLAS", "1")
     from aoclsparse_tpu.core.context import reset_context
 
     reset_context()
@@ -477,7 +444,6 @@ def test_gen_pcg_permuted_space_iterations(rng, monkeypatch):
 def test_gen_pgmres_permuted_space(rng, monkeypatch):
     """pgmres_solve (no preconditioner) also iterates in permuted space on
     gen operands; solution parity with the dense system."""
-    monkeypatch.setenv("AOCLSPARSE_TPU_FORCE_PALLAS", "1")
     from aoclsparse_tpu.core.context import reset_context
 
     reset_context()
@@ -502,7 +468,6 @@ def test_gen_pcg_pspace_refreshes_after_update_values(rng, monkeypatch):
     """update_values must invalidate the cached permuted-space solver
     closure (plan.refresh_values clears _fused_cache) so the next solve
     sees the new values."""
-    monkeypatch.setenv("AOCLSPARSE_TPU_FORCE_PALLAS", "1")
     from aoclsparse_tpu.core.context import reset_context
 
     reset_context()

@@ -1,6 +1,5 @@
 """Lazy band-product values (ROADMAP round-3): a SpGEMM result computed on
-the band engine defers the CSR extraction gather (~13 ns/nnz on the TPU)
-until CSR values are actually read; chained mv/sp2m consumption runs on the
+the band engine defers the CSR extraction gather until CSR values are actually read; chained mv/sp2m consumption runs on the
 seeded device band and never pays it. Reference role: consuming a product
 through the optimized-format cache (level2/aoclsparse_mv.cpp:179)."""
 

@@ -1,11 +1,12 @@
-"""Pallas band-SpMV kernel tests (interpret mode on CPU)."""
+"""Banded-window SpMV kernel (kernels/xla/spmv.py spmv_bwd) against the
+dense oracle, called directly on planner-built operands."""
 
 import numpy as np
 import pytest
 
 import aoclsparse_tpu as ast
 from aoclsparse_tpu import MatrixDescriptor, Operation
-from aoclsparse_tpu.kernels.pallas.spmv import pallas_spmv_bwd
+from aoclsparse_tpu.kernels.xla.spmv import spmv_bwd
 from aoclsparse_tpu.planner.plan import get_plan
 from aoclsparse_tpu.utils.tolerances import assert_allclose_spec
 
@@ -29,14 +30,12 @@ def test_pallas_bwd_matches_dense(rng, m, half_bw, TM):
     form = get_plan(A).exec_form_for(MatrixDescriptor(), Operation.none, kind="bwd")
     x = rng.standard_normal(m).astype(np.float32)
     xp = jnp.pad(jnp.asarray(x), (form.bwd_padL, form.bwd_n_pad - form.bwd_padL - m))
-    y = pallas_spmv_bwd(
-        form.bwd_val, xp, form.bwd_W, form.bwd_base8, form.bwd_n_pad, TM=TM, interpret=True
-    )
+    y = spmv_bwd(form.bwd_val, xp, form.bwd_W, form.bwd_base8, form.bwd_n_pad)
     assert_allclose_spec(np.asarray(y)[:m], dense @ x, dtype=np.float32, scale=30)
 
 
 def test_pallas_bwd_negative_base(rng):
-    """Window reaching left of column 0 (padL > 0) exercises the roll path."""
+    """Window reaching left of column 0 (padL > 0) exercises the x padding."""
     import jax.numpy as jnp
 
     m = 160
@@ -46,26 +45,5 @@ def test_pallas_bwd_negative_base(rng):
     assert form.bwd_padL > 0 or form.bwd_base8 >= 0
     x = rng.standard_normal(m).astype(np.float32)
     xp = jnp.pad(jnp.asarray(x), (form.bwd_padL, form.bwd_n_pad - form.bwd_padL - m))
-    y = pallas_spmv_bwd(
-        form.bwd_val, xp, form.bwd_W, form.bwd_base8, form.bwd_n_pad, TM=64, interpret=True
-    )
+    y = spmv_bwd(form.bwd_val, xp, form.bwd_W, form.bwd_base8, form.bwd_n_pad)
     assert_allclose_spec(np.asarray(y)[:m], dense @ x, dtype=np.float32, scale=30)
-
-
-def test_bandv_tm_budget():
-    """Adaptive tile: largest power-of-2 TM in [1024, 8192] whose band
-    block stays double-bufferable; env override wins."""
-    import os
-
-    from aoclsparse_tpu.kernels.pallas.spmv import bandv_tm
-
-    assert bandv_tm(128) == 8192  # cant-class f32: 4 MB block
-    assert bandv_tm(128, itemsize=8) == 4096  # df64 pair: halved budget
-    assert bandv_tm(656) == 2048  # web-profile band: 21 MB at 8192
-    assert bandv_tm(40) == 8192
-    assert bandv_tm(10**6) == 1024  # floor
-    os.environ["AOCLSPARSE_TPU_BANDV_TM"] = "2048"
-    try:
-        assert bandv_tm(128) == 2048
-    finally:
-        del os.environ["AOCLSPARSE_TPU_BANDV_TM"]

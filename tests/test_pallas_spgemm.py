@@ -1,16 +1,12 @@
-"""Pallas band-GEMM numeric kernel vs the scan engine (interpret mode)."""
+"""Band x band SpGEMM numeric (the scan of dense matmuls) vs the library's
+default product engine on the same pattern."""
 
 import numpy as np
-import jax.numpy as jnp
 import pytest
 
 import aoclsparse_tpu as ast
 from aoclsparse_tpu import MatrixDescriptor, Operation
-from aoclsparse_tpu.kernels.xla.spgemm_band import (
-    _band_gemm_scan,
-    _ensure_streams,
-    build_band_gemm_plan,
-)
+from aoclsparse_tpu.kernels.xla.spgemm_band import build_band_gemm_plan
 from aoclsparse_tpu.planner.plan import build_effective_csr, get_plan
 
 
@@ -42,23 +38,10 @@ def test_pallas_band_gemm_matches_scan(half_bw):
         effA, effB, np.asarray(Cptr), np.asarray(Cind), G=256, force=True
     )
     assert gp is not None
-    gp.formA.refresh(effA.val)
-    gp.formB.refresh(effB.val)
-    streams = _ensure_streams(gp)
-    want = np.asarray(
-        _band_gemm_scan(
-            gp.formA.bwd_val, streams, G=gp.G, WB=gp.WB, WC=gp.WC,
-            ranges=gp.stream_ranges,
-        )
-    )
-    from aoclsparse_tpu.kernels.pallas.spgemm import pallas_band_gemm
+    from aoclsparse_tpu.kernels.xla.spgemm_band import band_gemm_values
 
-    got = np.asarray(
-        pallas_band_gemm(
-            gp.formA.bwd_val, gp.formB.bwd_val, G=gp.G, WB=gp.WB, WC=gp.WC,
-            d0=gp.d0, ranges=gp.stream_ranges, interpret=True,
-        )
-    )
+    got = np.asarray(band_gemm_values(gp, effA.val, effB.val))
+    want = np.asarray(ast.export_csr(C)[5])
     assert got.shape == want.shape
     scale = max(1.0, np.abs(want).max())
-    assert np.abs(got - want).max() / scale < 1e-6
+    assert np.abs(got - want).max() / scale < 1e-5

@@ -103,7 +103,7 @@ def test_dist_cg_matches_and_same_iters(rng):
 
 
 def test_dist_cg_bwd(rng):
-    """Distributed CG over the banded-window operand (the TPU hot path)."""
+    """Distributed CG over the banded-window operand."""
     from aoclsparse_tpu import MatrixDescriptor, Operation
     from aoclsparse_tpu.parallel import dist_cg_bwd
 

@@ -112,15 +112,15 @@ def test_save_load_preserves_autotune_pins(rng):
 
 def test_gen_form_snapshot_roundtrip(rng, monkeypatch):
     """The expensive case the cache exists for: the gen composite's RCM/
-    hub/spill analysis restores without re-running (simulated TPU context
-    so the gen kind is selected)."""
+    hub/spill analysis restores without re-running (simulated GPU context;
+    the gen kind is requested explicitly)."""
     import dataclasses
 
     import aoclsparse_tpu.core.context as ctx_mod
     from aoclsparse_tpu.core.context import reset_context
 
     reset_context()
-    ctx_mod._ctx = dataclasses.replace(ctx_mod.get_context(), platform="tpu", pallas_ok=False)
+    ctx_mod._ctx = dataclasses.replace(ctx_mod.get_context(), platform="gpu")
     try:
         m = 4096
         ptr, c, val, dense = _circuitish(rng, m)

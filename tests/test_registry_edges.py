@@ -19,13 +19,13 @@ def test_oracle_exact_backend_wins(monkeypatch):
     r = Registry()
     r.register("op", KernelEntry(0, "generic", _dummy, "f", "any", 0))
     r.register("op", KernelEntry(1, "cpu_special", _dummy, "f", "cpu", 0))
-    from aoclsparse_tpu.core import context as ctx
-
-    # on CPU the exact-backend row must beat the "any" row
-    assert r.select("op", fmt="f").name in ("cpu_special", "generic")
+    # the exact-backend row (the context's platform) beats the "any" row
     e = r.select("op", fmt="f")
-    if not ast.get_context().is_tpu:
-        assert e.kid == 1
+    assert ast.get_context().platform == "cpu"
+    assert e.kid == 1
+    # a "gpu" row is its own backend: never chosen on a CPU context
+    r.register("op", KernelEntry(2, "gpu_special", _dummy, "f", "gpu", 9))
+    assert r.select("op", fmt="f").kid == 1
 
 
 def test_oracle_tie_highest_kid():

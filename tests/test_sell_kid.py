@@ -1,6 +1,6 @@
 """SELL execution form as an explicit-KID mv path (ROADMAP: wire SELL as a
 dispatcher-selectable KID). Mirrors the reference's per-format dispatch tests
-(csrmv kid table, level2/aoclsparse_mv.cpp:179) for the TPU sliced-ELL form."""
+(csrmv kid table, level2/aoclsparse_mv.cpp:179) for the sliced-ELL form."""
 
 import numpy as np
 import pytest
